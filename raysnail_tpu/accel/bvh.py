@@ -1,7 +1,7 @@
 """Bounding-volume hierarchy: host-side build, linearized skip-link layout.
 
 The reference builds a BVH of trait objects with a random-axis median split
-and recursive traversal (src/hittable/collection/bvh.rs:47-192). TPU-first,
+and recursive traversal (src/hittable/collection/bvh.rs:47-192). Here
 the BVH is built ONCE on the host (binned SAH — higher quality than the
 reference's median split, whose axis choice bug only ever picks x/y,
 bvh.rs:91) and linearized into flat arrays with skip links ("threaded" BVH):
@@ -13,8 +13,9 @@ bvh.rs:91) and linearized into flat arrays with skip links ("threaded" BVH):
     with degenerate entries, so the device-side traversal tests a fixed-width
     block of primitives with no data-dependent shapes.
 
-Device traversal (geometry/triangles.py) walks all rays in lockstep with
-per-ray node pointers in a lax.while_loop — stackless, static shapes.
+Device traversal walks the tree stackless with per-ray node pointers: in
+lockstep in a lax.while_loop (geometry/triangles.py, the XLA route) or one
+ray per lane in a Pallas kernel (ops/mesh_kernel.py, the GPU route).
 
 A native C++ builder (accel/native) produces the same arrays faster for large
 meshes; this numpy implementation is the reference/fallback.
@@ -48,63 +49,6 @@ class _Node:
         self.left, self.right, self.prims = left, right, prims
 
 
-def relinearize_octants(arr: BvhArrays) -> tuple[np.ndarray, np.ndarray]:
-    """8 direction-octant linearizations of a skip-link BVH for front-to-back
-    traversal: for each ray-direction octant, children are visited
-    nearer-first along the split axis, so the packet's best_t tightens early
-    and far subtrees prune (the reference's recursive traversal gets this for
-    free by shrinking t_max into the second child, bvh.rs:180-188).
-
-    The binary tree is recovered from the pre-order skip links (interior i:
-    left = i+1, right = miss[i+1]); the split axis is re-derived as the
-    dominant component of the child-center difference.
-
-    -> (bb8 (8, M, 8) f32, links8 (8, M, 4) i32) where links columns are
-    [leaf_first, count, miss, pad] in each octant's node order. Leaf `first`
-    values are preserved (primitive storage is shared by all orders).
-    """
-    m = arr.count.shape[0]
-    count, miss, first = arr.count, arr.miss, arr.first
-    centers = 0.5 * (arr.bb_min + arr.bb_max)
-
-    # subtree sizes in pre-order: size[i] = miss-skip distance
-    size = np.empty(m, np.int64)
-    for i in range(m - 1, -1, -1):
-        size[i] = 1 if count[i] > 0 else 1 + size[i + 1] + size[miss[i + 1]]
-
-    bb8 = np.zeros((8, m, 8), np.float32)
-    links8 = np.zeros((8, m, 4), np.int32)
-    for octant in range(8):
-        neg = ((octant >> 2) & 1, (octant >> 1) & 1, octant & 1)  # x, y, z
-        order = np.empty(m, np.int64)
-        new_miss = np.empty(m, np.int64)
-        pos = 0
-        stack = [(0, m)]  # (old node, miss link in NEW numbering)
-        while stack:
-            i, miss_link = stack.pop()
-            ni = pos
-            order[ni] = i
-            new_miss[ni] = miss_link
-            pos += 1
-            if count[i] == 0:
-                left, right = i + 1, int(miss[i + 1])
-                dc = centers[right] - centers[left]
-                axis = int(np.argmax(np.abs(dc)))
-                lo_first = dc[axis] >= 0.0  # left child is the nearer one
-                near, far = (left, right) if lo_first == (not neg[axis]) \
-                    else (right, left)
-                # near visited first: push far (with parent's miss), then
-                # near (missing into far's new position = ni+1+size[near])
-                stack.append((far, miss_link))
-                stack.append((near, ni + 1 + size[near]))
-        bb8[octant, :, 0:3] = arr.bb_min[order]
-        bb8[octant, :, 3:6] = arr.bb_max[order]
-        links8[octant, :, 0] = first[order]
-        links8[octant, :, 1] = count[order]
-        links8[octant, :, 2] = new_miss
-    return bb8, links8
-
-
 def build_bvh(prim_bb_min: np.ndarray, prim_bb_max: np.ndarray,
               leaf_size: int = LEAF_SIZE, use_native: bool = True) -> BvhArrays:
     """Build from per-primitive AABBs -> linearized arrays."""
@@ -117,38 +61,6 @@ def build_bvh(prim_bb_min: np.ndarray, prim_bb_max: np.ndarray,
         except Exception:
             pass
     return build_bvh_numpy(prim_bb_min, prim_bb_max, leaf_size)
-
-
-def coarse_cut(count: np.ndarray, miss: np.ndarray,
-               max_entries: int = 64, min_t: int = 8) -> list[tuple[int, int]]:
-    """Coarse cut for the TWO-LEVEL traversal walk (ops/bvh_pallas.py): a
-    partition of the tree into <= max_entries complete subtrees, each
-    spanning the contiguous DFS range [start, end). The kernel vector-tests
-    the cut roots' bboxes in 8-wide windows (pure VPU work, one packed-bits
-    scalar transfer per window) and only runs the serial link-resolution
-    walk INSIDE admitted subtrees — replacing the scalar chase through the
-    above-cut levels that every packet paid per outer round.
-
-    Works on any DFS/skip-link linearization (miss[i] = first node after
-    subtree(i)), so the per-octant orders of relinearize_octants cut the
-    same subtree SIZES at different indices."""
-    m = count.shape[0]
-    t = min_t
-    while True:
-        cuts: list[tuple[int, int]] = []
-        stack = [0]
-        while stack:
-            i = stack.pop()
-            end = int(miss[i]) if int(miss[i]) > i else m
-            if count[i] > 0 or end - i <= t:
-                cuts.append((i, end))
-            else:
-                left = i + 1
-                stack.append(int(miss[left]))  # right sibling (popped second)
-                stack.append(left)
-        if len(cuts) <= max_entries:
-            return cuts
-        t *= 2
 
 
 def build_bvh_numpy(prim_bb_min, prim_bb_max, leaf_size: int = LEAF_SIZE) -> BvhArrays:

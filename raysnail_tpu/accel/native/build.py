@@ -1,6 +1,8 @@
-"""ctypes loader for the native BVH builder; compiles on first use with g++
-and caches the shared object next to the source. Falls back to the numpy
-builder (accel/bvh.py) when compilation is unavailable."""
+"""ctypes loader for the native BVH builder. The shared object is never
+committed: it is compiled from bvh_builder.cpp with g++ at first use,
+whenever it is missing or older than the source, next to the source (a path
+.gitignore lists). Falls back to the numpy builder (accel/bvh.py) when
+compilation is unavailable."""
 
 from __future__ import annotations
 

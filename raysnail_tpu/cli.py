@@ -14,8 +14,9 @@ import time
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(prog="raysnail-tpu",
-                                 description="TPU-native differentiable path tracer")
+    ap = argparse.ArgumentParser(
+        prog="raysnail-tpu",
+        description="differentiable path tracer for GPUs (JAX)")
     ap.add_argument("--scene", "-f", required=True, help="SDL scene file")
     ap.add_argument("-w", "--width", type=int, default=800)
     ap.add_argument("--height", type=int, default=600)
@@ -24,7 +25,9 @@ def main(argv=None):
     ap.add_argument("--outfile", "-o", default="output.png")
     ap.add_argument("--depth", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
+    ap.add_argument("--cpu", action="store_true",
+                    help="render on the CPU (without it, a missing GPU is "
+                         "an error)")
     ap.add_argument("--preview", action="store_true",
                     help="rewrite the output PNG as passes complete")
     ap.add_argument("--serve", type=int, nargs="?", const=8765, default=None,
@@ -35,20 +38,23 @@ def main(argv=None):
                     help="physically-correct one-sample MIS instead of the "
                          "reference-compat estimator")
     ap.add_argument("--pallas", choices=["auto", "never", "force"],
-                    default="auto", help="Pallas kernel policy")
+                    default="auto",
+                    help="mesh traversal route: auto = the Pallas kernel on a "
+                         "GPU, the XLA walk on a CPU")
     ap.add_argument("--checkpoint", default=None,
                     help="write/read resumable render state at this path")
     args = ap.parse_args(argv)
 
-    import os
-
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.getcwd(), ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from raysnail_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    elif jax.default_backend() != "gpu":
+        ap.error(f"no GPU found (JAX sees {jax.devices()}); pass --cpu to "
+                 f"render on the CPU")
 
     from PIL import Image
 
@@ -60,7 +66,7 @@ def main(argv=None):
     cfg = RenderConfig(width=args.width, height=args.height,
                        samples=args.samples, max_depth=args.depth,
                        passes=args.passes, proper_mis=args.mis,
-                       use_pallas=args.pallas)
+                       mesh_pallas=args.pallas)
     t0 = time.time()
     scene, camera = build_scene(args.scene, cfg)
     print(f"parsed + compiled {args.scene} in {time.time() - t0:.2f}s "

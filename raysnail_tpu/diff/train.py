@@ -37,14 +37,12 @@ def render_image_diff(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
                       params: SceneParams, key, sample_ids) -> Vec3:
     """Differentiable mean-radiance image (flat (H*W,) Vec3, linear — no
     gamma) for a chunk of stratification cells."""
-    # differentiable path keeps sphere hits on fused XLA: the pallas kernels
-    # are stop_gradient'd (their while_loops are not reverse-differentiable),
-    # and sphere hit distances must stay ATTACHED so fuzz/IOR parameters get
-    # reparameterized pathwise gradients through subsequent hit positions
     # path_regen's while_loop is not reverse-differentiable: gradients flow
-    # through the per-sample scan integrator
-    cfg = cfg.replace(use_pallas="never", sphere_bvh="never",
-                      path_regen="never")
+    # through the per-sample scan integrator. Sphere hits stay on the dense
+    # XLA sweep, ATTACHED, so fuzz/IOR parameters get reparameterized
+    # pathwise gradients through subsequent hit positions; mesh hits are
+    # detached on either route.
+    cfg = cfg.replace(path_regen="never")
     arrays = inject_params(scene.arrays, params)
     w, h = cfg.width, cfg.height
     py, px = jnp.meshgrid(jnp.arange(h, dtype=cfg.dtype),
@@ -85,14 +83,11 @@ def make_train_step(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
     cell's image against the fixed cotangent dL/d(mean image) / S and
     accumulates the gradient in the carry. Combined with cfg.remat_bounces
     this bounds fwd+bwd memory by ONE cell's per-bounce carries, so the
-    canonical 800x500@64spp config fits a chip (measured 18.1 Mrays/s
-    fwd+bwd, BENCH_DETAILS r3).
+    canonical 800x500@64spp config fits one device.
 
     Per-CELL VJPs, not per-chunk: a VJP through a multi-cell sample scan
-    measured ~90x slower per ray on the TPU than the same cells as
-    independent VJPs (bench example-fwd+bwd r3: 0.067 vs 18.1 Mrays/s at
-    chunk 5 vs 1); the scan over cells keeps the traced program one body
-    regardless of spp (the unrolled 64-chunk canonical step compiled 554 s).
+    stores that scan's residuals, and the scan over cells keeps the traced
+    program one body regardless of spp.
     """
     import optax
 
@@ -122,16 +117,15 @@ def make_train_step(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
         cotangent dL/d(mean image) — so it need not run the
         reverse-differentiable scan integrator: it rides the cross-pixel
         SHUFFLE regen integrator (the full-frame fast path; plain per-pixel
-        regen measured 4.4x SLOWER than even the scan forward at
-        400x250@16spp — bench r4: 3.7 vs 16.8 Mrays/s fwd+bwd — because its
-        trip count barely concentrates while paying regen bookkeeping).
+        regen's trip count barely concentrates while paying regen
+        bookkeeping).
         Keying is (seed, pixel, sample, bounce) in both integrators, so the
         estimate matches the scan forward modulo f32 summation order
         (~1e-6).
 
         The regen fast path renders cells [ids[0], ids[0] + len(ids)) — it
         requires `ids` to be a contiguous ascending range. `contiguous` is
-        checked from the CONCRETE ids at the step() call site (ADVICE r4);
+        checked from the CONCRETE ids at the step() call site;
         non-contiguous batches fall back to sample_sums, which takes the ids
         verbatim."""
         from raysnail_tpu import integrator
@@ -166,8 +160,7 @@ def make_train_step(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
 
         w = cfg.width
         sq = cfg.sqrt_spp
-        cfgd = cfg.replace(max_depth=depth, use_pallas="never",
-                           sphere_bvh="never", path_regen="never")
+        cfgd = cfg.replace(max_depth=depth, path_regen="never")
         arrays = inject_params(scene.arrays, params)
         pix = (idxs % n_pix).astype(jnp.int32)
         sid = sid0 + (idxs // n_pix).astype(jnp.int32)
@@ -206,7 +199,7 @@ def make_train_step(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
             zeros = jax.tree_util.tree_map(jnp.zeros_like, params)
 
             if bucketed and lens is not None:
-                # LENGTH-BUCKETED pair VJPs (VERDICT r4 item 4): the per-cell
+                # LENGTH-BUCKETED pair VJPs: the per-cell
                 # scheme replays every (pixel, cell) at full depth, but scan
                 # occupancy decays to ~30% by depth 8 — most paths die after
                 # 1-3 bounces. Pass 1 recorded every pair's path length; sort
@@ -270,7 +263,7 @@ def make_train_step(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
     def step(params, opt_state, key, sample_ids):
         """Contiguity of `sample_ids` is checked here, on the CONCRETE array,
         and routed into the jit as a static flag: the pass-1 regen fast path
-        assumes a contiguous ascending cell range (ADVICE r4). Callers that
+        assumes a contiguous ascending cell range. Callers that
         pass already-traced ids (none in-tree) inherit the documented
         contiguous-ids contract."""
         import numpy as np
@@ -282,12 +275,9 @@ def make_train_step(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
             contiguous = True
         backend = "fast" if cfg.rng == "auto" else cfg.rng
         import os
-        # default OFF: on the v5e the scheme LOST to per-cell VJPs end to
-        # end (canonical 12.0 vs 14.6 Mrays/s same-session) despite an
-        # 87%-of-paths-die-by-bounce-2 length distribution (3.5x
-        # theoretical) — the 25.6M-pair argsort + batch machinery eats the
-        # truncation win (BASELINE.md round-5 findings). On CPU it WINS
-        # (+12%). RAYSNAIL_BUCKET_VJP=1 or bucket_vjp=True opts in.
+        # default OFF: its 25.6M-pair argsort + batch machinery competes
+        # with the truncation win, and which one wins on the GPU is not
+        # measured yet. RAYSNAIL_BUCKET_VJP=1 or bucket_vjp=True opts in.
         env_on = os.environ.get("RAYSNAIL_BUCKET_VJP") == "1"
         env_off = os.environ.get("RAYSNAIL_BUCKET_VJP") == "0"
         bucketed = ((bucket_vjp or env_on) and not env_off and contiguous

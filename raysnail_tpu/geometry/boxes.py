@@ -1,7 +1,7 @@
 """Axis-aligned and oriented box intersection (slab tests).
 
 The reference builds a Box from 6 AARects and collects face hits
-(src/hittable/geometry/box.rs:48-149). The TPU-native equivalent is the
+(src/hittable/geometry/box.rs:48-149). Here it is the
 branch-free slab test, which yields the same (t_near, t_far) interval, face
 normal and uv in O(1) without a face list. Oriented boxes (SDL `rotate` on a
 box) carry a per-box world->object affine; the slab test runs in object space
@@ -32,14 +32,6 @@ class BoxGroup(NamedTuple):
     # object normals -> world.
     inv_rows: tuple | None = None  # (row0: Vec3, row1: Vec3, row2: Vec3) each (B,)
     inv_off: Vec3 | None = None    # (B,)
-    # Packed BVH for the pallas traversal kernel (axis-aligned groups with
-    # enough boxes — e.g. book2's 400-box ground, scene.rs:341-358); None
-    # keeps the dense slab sweep.
-    pk_bb: jax.Array | None = None     # (K, M, 8) f32
-    pk_links: jax.Array | None = None  # (K, M, 4) i32
-    pk_box: jax.Array | None = None    # (B', 8, 128) f32
-    pk_cbb: jax.Array | None = None    # (K, 64, 8) f32 two-level coarse cut
-    pk_crange: jax.Array | None = None # (K, 64, 4) i32 [start, end) ranges
 
 
 def _apply_rows(rows, off, v: Vec3, translate: bool) -> Vec3:
@@ -85,14 +77,16 @@ def _axis_normal(axis, sign) -> Vec3:
 
 def _select_axis(x, y, z, axis):
     """Component of a vector by per-lane axis index — elementwise selects
-    (jnp.take_along_axis lowers to a serial gather on TPU; this stays VPU)."""
+    over the three components."""
     return jnp.where(axis == 0, x, jnp.where(axis == 1, y, z))
 
 
 def intersect(group: BoxGroup, ray, t_min, t_max, chunk: int = 256) -> Hit:
     """Closest box hit per ray: surface t is t_near if in range else t_far
     (ray started inside — box.rs:131-134), with the face's outward normal and
-    face uv."""
+    face uv. A dense (rays x boxes) slab sweep with a min-t argmin: XLA fuses
+    it into one compare-and-min pass, which serves book2's 400-box ground
+    (scene.rs:341-358) as well as small groups."""
     o = ray.origin.map(lambda a: a[:, None])
     d = ray.direction.map(lambda a: a[:, None])
     oriented = group.inv_rows is not None
@@ -150,48 +144,6 @@ def intersect(group: BoxGroup, ray, t_min, t_max, chunk: int = 256) -> Hit:
 
     mat_id = hitlib.select_table(onehot, group.mat_id)
     return hitlib.finalize(ray.direction, t_best, geom_n, u, v, mat_id, valid)
-
-
-def intersect_pallas(group: BoxGroup, ray, t_min, t_max,
-                     active=None, t_cap=None, interpret: bool = False) -> Hit:
-    """Packet BVH traversal of an axis-aligned box group on the TPU
-    (ops/bvh_pallas.py kind="box"): the kernel returns the winning face's
-    axis / entry flag / uv / material, so only the normal reconstruction
-    (pure elementwise) remains here. Replaces the dense (rays x boxes)
-    slab sweep for large groups — book2's 400-box ground re-swept every
-    bounce was the diagnosed cost (scene.rs:341-358)."""
-    from raysnail_tpu.ops import bvh_pallas
-
-    n = jnp.shape(ray.direction.x)[0]
-    ox, oy, oz = ray.origin.x, ray.origin.y, ray.origin.z
-    dx, dy, dz = ray.direction.x, ray.direction.y, ray.direction.z
-    cap = (jnp.full(n, BIG, jnp.float32) if t_cap is None
-           else jax.lax.stop_gradient(jnp.asarray(t_cap, jnp.float32)))
-    if active is not None:
-        cap = jnp.where(active, cap, -1.0)
-
-    pad = (-n) % bvh_pallas.TILE_R
-
-    def p(a):
-        return jnp.pad(a, (0, pad)) if pad else a
-
-    t, axis_f, near_f, u, v, mat = bvh_pallas.bvh_traverse(
-        (p(ox), p(oy), p(oz)), (p(dx), p(dy), p(dz)), p(cap),
-        group.pk_bb, group.pk_links, group.pk_box,
-        jnp.float32(t_min), jnp.float32(t_max), kind="box",
-        interpret=interpret,
-        cbb=group.pk_cbb, crange=group.pk_crange,
-    )
-    t, axis_f, near_f, u, v, mat = (a[:n] for a in
-                                    (t, axis_f, near_f, u, v, mat))
-    valid = t < BIG * 0.5
-    axis = jnp.round(axis_f).astype(jnp.int32)
-    near_sel = near_f > 0.5
-    d_axis = _select_axis(dx, dy, dz, axis)
-    sign = jnp.where(near_sel, -jnp.sign(d_axis), jnp.sign(d_axis))
-    geom_n = _axis_normal(axis, sign)
-    return hitlib.finalize(ray.direction, jnp.where(valid, t, BIG), geom_n,
-                           u, v, jnp.where(valid, mat, -1), valid)
 
 
 # -- CSG / media support (single box, scalar params broadcast over rays) ----

@@ -346,15 +346,11 @@ def intersect_trees(trees, ray, t_min, t_max) -> Hit:
         stacked = jax.tree_util.tree_map(
             lambda *xs: jnp.stack([jnp.asarray(x) for x in xs]), *group)
         # vmap, NOT lax.map: one traced program per structure AND vectorized
-        # execution — lax.map lowers to a sequential scan, which measured a
-        # 2.5x end-to-end LOSS on quadric.sdl (round-2 bench, 45.8 -> 18.0
-        # Mrays/s); the (K, N) batched form restores dense-sweep throughput
+        # execution — lax.map lowers to a sequential scan; the (K, N)
+        # batched form keeps dense-sweep throughput
         hits = jax.vmap(lambda tr: tr.hit(ray, t_min, t_max).to_hit())(stacked)
-        # reduce over the K axis with static slices + selects. NOT
-        # argmin + take_along_axis: that per-element gather across rows
-        # serializes on TPU and measured 1.5 Mrays/s end-to-end on
-        # quadric.sdl vs ~46 for select-based combining (same poison as the
-        # round-1 "eliminate dynamic gathers" finding)
+        # reduce over the K axis with static slices + selects (K is small),
+        # fused elementwise, instead of argmin + take_along_axis
         for k in range(len(group)):
             hk = jax.tree_util.tree_map(
                 lambda a, k=k: a.map(lambda c: c[k]) if isinstance(a, Vec3) else a[k],

@@ -3,7 +3,7 @@
 The reference sphere-traces with per-ray early exits: DE steps of 0.05*DE,
 a 200-step linear fine search and an 8-level binary search once the estimate
 drops below 1.3 (raymarching.rs:108-160, 56-73). That scalar control flow is
-re-expressed TPU-first as a fixed-trip-count masked march (SURVEY.md sect.7
+re-expressed as a masked march over static-shape lane blocks (SURVEY.md sect.7
 "unbounded loops"):
 
   * clip the ray to the bounding sphere r=1.3 (raymarching.rs:167-176);
@@ -14,8 +14,9 @@ re-expressed TPU-first as a fixed-trip-count masked march (SURVEY.md sect.7
   * central-difference normal with d=0.01 (raymarching.rs:79-91), spherical uv.
 
 DE_ITERATIONS is 24 instead of the reference's 100: the escape-time bailout
-makes extra iterations matter only deep inside the set, and fixed-trip TPU
-lanes pay for all of them; 24 is visually indistinguishable at benchmark spp.
+makes extra iterations matter only deep inside the set, and a block's
+lanes pay for its slowest one; 24 is visually indistinguishable at
+benchmark spp.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def distance_est(p: Vec3, iterations: int = DE_ITERATIONS):
     double-angle steps from cos(theta) = z/r, sin(theta) = rho/r (and
     likewise for phi), and r^8 / r^7 are repeated squarings — replacing 2
     arctan2 + 3 trig + 2 pow per iteration (each a multi-op polynomial
-    expansion on the VPU) with ~20 mul/add. distance_est_trig below is the
+    expansion in elementwise arithmetic) with ~20 mul/add. distance_est_trig below is the
     literal formula, kept as the equivalence oracle for tests.
 
     The iteration loop exits as soon as EVERY lane in the batch has escaped
@@ -144,13 +145,10 @@ def distance_est_trig(p: Vec3, iterations: int = DE_ITERATIONS):
     return de, ~escaped
 
 
-# Rays per march block (lane-compaction granularity). 1024 lanes = ONE
-# 8x128 vreg: every op in the march's long dependency chain is then
-# latency-bound, and the per-block lax.scan serializes those chains —
-# measured an 11x END-TO-END LOSS on the mandelbulb bench vs round 1's
-# whole-batch march (0.09 vs 1.06 Mrays/s, BENCH_DETAILS r3 sweep of r2
-# code). 32 vregs per op keeps the VPU pipeline full while still letting
-# all-miss/all-dead blocks skip; env knob for perf probes.
+# Rays per march block (lane-compaction granularity). The per-block
+# lax.scan serializes the blocks, so a block must be wide enough to fill
+# the device on its own while still letting all-miss/all-dead blocks skip;
+# env knob for perf probes.
 import os as _os
 
 BLOCK = int(_os.environ.get("RAYSNAIL_BULB_BLOCK", str(32 * 1024)))
@@ -219,7 +217,7 @@ class MandelbulbNode(NamedTuple):
         clusters spatially: the march runs per 1024-ray block under a
         lax.cond, and blocks whose rays all miss the bounding sphere (or are
         dead in the integrator) skip the march AND the normal evaluation
-        entirely — the TPU replacement for the reference's per-ray early
+        entirely — the block-level form of the reference's per-ray early
         exits (raymarching.rs:108-160)."""
         o, d = ray.origin, ray.direction
         n = jnp.shape(d.x)[0]
@@ -265,11 +263,9 @@ class MandelbulbNode(NamedTuple):
         h0p = jnp.zeros_like(d0p)
 
         k1 = int(_os.environ.get("RAYSNAIL_BULB_K1", "16"))
-        # compaction is OPT-IN (RAYSNAIL_BULB_COMPACT=1): the first TPU
-        # reading of the two-phase march LANDED BELOW the single-phase
-        # scheme on the passes4 bench (0.62 vs 0.78 Mrays/s) — the
-        # per-bounce argsort + ~10 gathers cost more than the straggler
-        # blocks they compact away at this scene's coherence
+        # compaction is OPT-IN (RAYSNAIL_BULB_COMPACT=1): the per-bounce
+        # argsort + ~10 gathers compete with the straggler blocks they
+        # compact away, and the GPU's verdict is not measured yet
         if k1 >= MAX_STEPS or _os.environ.get("RAYSNAIL_BULB_COMPACT") != "1":
             # single-phase path (the pre-r5 scheme; perf A/B)
             t, _, hit_mask, nx, ny, nz, u, v = blocked_march(

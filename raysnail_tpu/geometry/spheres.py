@@ -26,13 +26,6 @@ class SphereGroup(NamedTuple):
     speed: Vec3         # (S,) motion-blur velocity
     mat_id: jax.Array   # (S,) int32
     active: jax.Array   # (S,) bool — False for padding rows
-    # packed BVH for the pallas traversal kernel (ops/bvh_pallas.py), built
-    # for static groups of >= 64 spheres (scene._compile)
-    pk_bb: jax.Array | None = None     # (M, 8) f32
-    pk_links: jax.Array | None = None  # (M, 4) i32
-    pk_sph: jax.Array | None = None    # (B, 8, LANES) f32
-    pk_cbb: jax.Array | None = None    # (K, 64, 8) f32 two-level coarse cut
-    pk_crange: jax.Array | None = None # (K, 64, 4) i32 [start, end) ranges
 
 
 def pair_t(group: SphereGroup, origin: Vec3, direction: Vec3, time, t_min, t_max,
@@ -62,59 +55,25 @@ def pair_t(group: SphereGroup, origin: Vec3, direction: Vec3, time, t_min, t_max
 
 
 def intersect(group: SphereGroup, ray, t_min, t_max, *, moving: bool = False,
-              chunk: int = 512, need_uv: bool = True,
-              use_pallas: bool = False, pallas_interpret: bool = False,
-              use_bvh: bool = False, bvh_interpret: bool = False,
-              active=None) -> Hit:
-    """Closest sphere hit per ray. Group arrays must be padded to a multiple
-    of `chunk` (scene compile guarantees this)."""
-    if use_bvh and group.pk_bb is not None:
-        return _intersect_bvh(group, ray, t_min, t_max, active=active,
-                              need_uv=need_uv, interpret=bvh_interpret)
+              chunk: int = 512, need_uv: bool = True) -> Hit:
+    """Closest sphere hit per ray: a dense (rays x spheres) sweep, chunked
+    over spheres when the group is larger than `chunk`. Group arrays must
+    then be padded to a multiple of `chunk` (scene compile guarantees
+    this)."""
     n = jnp.shape(ray.direction.x)[0]
     s = group.radius.shape[0]
     o = ray.origin.map(lambda a: a[:, None])
     d = ray.direction.map(lambda a: a[:, None])
     time = ray.time[:, None]
 
-    # the kernel pays off on big sphere groups; tiny groups (a handful of
-    # spheres padded to 128 lanes, plus a launch per bounce) are faster fused
-    if use_pallas and not moving and s >= 64:
-        from raysnail_tpu.ops import sphere_pallas as sp
-
-        pad_n = (-n) % sp.TILE_R
-        pad_s = (-s) % sp.LANES
-
-        def padded(a, amount, value=0.0):
-            return jnp.pad(a, (0, amount), constant_values=value) if amount else a
-
-        rays6 = tuple(padded(a, pad_n) for a in
-                      (ray.origin.x, ray.origin.y, ray.origin.z,
-                       ray.direction.x, ray.direction.y, ray.direction.z))
-        centers = tuple(padded(a, pad_s) for a in
-                        (group.center.x, group.center.y, group.center.z))
-        r2 = padded(group.radius * group.radius, pad_s)
-        act = padded(group.active, pad_s, value=False)
-        t_best, idx = sp.sphere_min_t(
-            rays6[:3], rays6[3:], centers, r2, act,
-            jnp.float32(t_min), jnp.float32(t_max),
-            interpret=pallas_interpret,
-        )
-        t_best = t_best[:n]
-        idx = idx[:n]
-    elif s <= chunk:
+    if s <= chunk:
         t = pair_t(group, o, d, time, t_min, t_max, moving)
         idx = jnp.argmin(t, axis=1)
         t_best = jnp.min(t, axis=1)
     else:
         n_chunks = s // chunk
-        # strip the packed-BVH side tables before chunking: they are not
-        # per-sphere rows (pk_sph is (B, 8, LANES)) and pair_t never reads them
         chunked = jax.tree_util.tree_map(
-            lambda a: a.reshape((n_chunks, chunk) + a.shape[1:]),
-            group._replace(pk_bb=None, pk_links=None, pk_sph=None,
-                           pk_cbb=None, pk_crange=None),
-        )
+            lambda a: a.reshape((n_chunks, chunk) + a.shape[1:]), group)
 
         def body(carry, g):
             t_best, idx_best, base = carry
@@ -149,45 +108,6 @@ def intersect(group: SphereGroup, ray, t_min, t_max, *, moving: bool = False,
         u = jnp.zeros_like(t_best)
         v = u
     return hitlib.finalize(ray.direction, t_best, geom_n, u, v, mat_id, valid)
-
-
-def _intersect_bvh(group: SphereGroup, ray, t_min, t_max, active=None,
-                   need_uv: bool = True, interpret: bool = False) -> Hit:
-    """BVH traversal + fused finishing on the pallas kernel: the winner's
-    center/radius/material come back from the kernel, so no per-ray selects
-    or gathers remain. Static spheres only (scene gates packing on motion);
-    detached — the kernel's while_loop is not reverse-differentiable, and
-    geometry gradients are out of scope anyway (the dense path keeps them)."""
-    from raysnail_tpu.ops import bvh_pallas
-
-    n = jnp.shape(ray.direction.x)[0]
-    cap = jnp.full(n, BIG, jnp.float32)
-    if active is not None:
-        cap = jnp.where(active, cap, -1.0)
-    pad = (-n) % bvh_pallas.TILE_R
-    p = lambda a: jnp.pad(a, (0, pad)) if pad else a
-
-    t, cx, cy, cz, r, mat = jax.lax.stop_gradient(bvh_pallas.bvh_traverse(
-        (p(ray.origin.x), p(ray.origin.y), p(ray.origin.z)),
-        (p(ray.direction.x), p(ray.direction.y), p(ray.direction.z)), p(cap),
-        group.pk_bb, group.pk_links, group.pk_sph,
-        jnp.float32(t_min), jnp.float32(t_max), kind="sphere",
-        interpret=interpret,
-        cbb=group.pk_cbb, crange=group.pk_crange,
-    ))
-    t, cx, cy, cz, r, mat = (a[:n] for a in (t, cx, cy, cz, r, mat))
-
-    valid = t < BIG * 0.5
-    center = Vec3(cx, cy, cz)
-    pnt = ray.origin + ray.direction * t
-    geom_n = (pnt - center) * (1.0 / jnp.where(valid, r, 1.0))
-    if need_uv:
-        u, v = sphere_uv(pnt - center)
-    else:
-        u = jnp.zeros_like(t)
-        v = u
-    return hitlib.finalize(ray.direction, t, geom_n, u, v,
-                           jnp.where(valid, mat, -1), valid)
 
 
 def sphere_uv(offset: Vec3):

@@ -1,7 +1,7 @@
 """Host-side affine transform stacks and compile-time lowering.
 
 The reference wraps objects in a TfFacade that inverse-transforms every ray at
-render time (src/hittable/transform/tf_facade.rs). TPU-first, transforms are
+render time (src/hittable/transform/tf_facade.rs). Here, transforms are
 instead a *scene-compile lowering pass* (numpy, float64):
 
   * sphere  + translate/uniform-scale  -> baked center/radius (still a sphere)

@@ -6,10 +6,12 @@ precomputed edge coefficients (src/hittable/geometry/triangle_mesh.rs:41-60,
 barycentric blend of vertex normals used AS GIVEN (HitRecord::with_normal
 sets outside=true without ray-facing flip), uv = (0,0).
 
-Traversal: all rays advance in lockstep through the skip-link BVH
-(accel/bvh.py) inside one lax.while_loop; a leaf visit tests a fixed
-LEAF_SIZE block of triangles via gathers. No recursion, no stacks, static
-shapes — the TPU replacement for bvh.rs:173-192.
+Traversal (`intersect`, the plain reference): all rays advance in lockstep
+through the skip-link BVH (accel/bvh.py) inside one lax.while_loop; a leaf
+visit tests a fixed LEAF_SIZE block of triangles via gathers. No recursion,
+no stacks, static shapes — the replacement for bvh.rs:173-192.
+`intersect_kernel` walks the same tree one ray per lane in a Pallas kernel
+(ops/mesh_kernel.py), the route meshes take on a GPU.
 """
 
 from __future__ import annotations
@@ -41,14 +43,6 @@ class TriangleGroup(NamedTuple):
     first: jax.Array    # (M,) int32
     count: jax.Array    # (M,) int32 (0 interior, LEAF_SIZE leaf)
     miss: jax.Array     # (M,) int32
-    # packed layouts for the pallas packet-traversal kernel (ops/bvh_pallas):
-    # a second, fat-leaf BVH whose blocks carry geometry + vertex normals +
-    # material id so the kernel finishes hits without any XLA gathers
-    pk_bb: jax.Array | None = None     # (M2, 8) f32
-    pk_links: jax.Array | None = None  # (M2, 4) i32
-    pk_tri: jax.Array | None = None    # (B, NF_TRI, LANES) f32
-    pk_cbb: jax.Array | None = None    # (K, 64, 8) f32 two-level coarse cut
-    pk_crange: jax.Array | None = None # (K, 64, 4) i32 [start, end) ranges
 
 
 def _tri_hit(g: TriangleGroup, tri_idx, o: Vec3, d: Vec3, t_min, t_max):
@@ -86,13 +80,11 @@ def _tri_hit(g: TriangleGroup, tri_idx, o: Vec3, d: Vec3, t_min, t_max):
 
 def intersect_brute(group: TriangleGroup, ray, t_min, t_max,
                     chunk: int = 256) -> Hit:
-    """Dense chunked triangle sweep — no BVH, no gathers.
-
-    TPU XLA serializes the lockstep BVH walk's per-ray node fetches, so up to
-    a few tens of thousands of triangles a (rays x chunk) broadcast test with
-    scalar per-chunk triangle data is far faster on the VPU (the same pattern
-    as the sphere group). Scene compile picks this path for small/medium
-    meshes (BRUTE_FORCE_MAX) and keeps the BVH for large ones."""
+    """Dense chunked triangle sweep — no BVH, no gathers: a (rays x chunk)
+    broadcast test with per-chunk triangle data (the same pattern as the
+    sphere group). Scene compile picks this path for small/medium meshes
+    (BRUTE_FORCE_MAX) on the XLA route and keeps the BVH walk for large
+    ones."""
     n = jnp.shape(ray.direction.x)[0]
     f = group.mat_id.shape[0]
     o = ray.origin.map(lambda a: a[:, None])
@@ -184,6 +176,16 @@ def _finish(group: TriangleGroup, ray, best_t, best_tri, beta, gamma) -> Hit:
 
 def intersect(group: TriangleGroup, ray, t_min, t_max,
               max_iters: int = 4096) -> Hit:
+    """Closest triangle hit per ray through the lockstep XLA BVH walk."""
+    return _finish(group, ray, *walk(group, ray, t_min, t_max, max_iters))
+
+
+def walk(group: TriangleGroup, ray, t_min, t_max, max_iters: int = 4096):
+    """The lockstep skip-link walk: every ray advances one node per
+    iteration until all are done or `max_iters` is reached (a walk cut
+    short misses hits; pass max_iters >= the node count for an exact
+    reference). -> (best_t, best_tri, beta, gamma), best_t = BIG on a
+    miss."""
     o, d = ray.origin, ray.direction
     n = jnp.shape(d.x)[0]
     n_nodes = group.first.shape[0]
@@ -241,100 +243,29 @@ def intersect(group: TriangleGroup, ray, t_min, t_max,
         jnp.zeros(n, d.x.dtype),
         jnp.asarray(0, jnp.int32),
     )
-    node, best_t, best_tri, beta, gamma, _ = jax.lax.while_loop(cond, body, init)
-    return _finish(group, ray, best_t, best_tri, beta, gamma)
+    _, best_t, best_tri, beta, gamma, _ = jax.lax.while_loop(cond, body, init)
+    return best_t, best_tri, beta, gamma
 
 
-def intersect_pallas(group: TriangleGroup, ray, t_min, t_max,
-                     active=None, t_cap=None, interpret: bool = False,
-                     sort_rays: bool = False, bin_mode: str = "never") -> Hit:
-    """Packet BVH traversal on the TPU (ops/bvh_pallas.py v4): normals and
-    material ids come back from the kernel itself, so no per-ray gathers
-    remain on this path.
+def intersect_kernel(group: TriangleGroup, ray, t_min, t_max,
+                     active=None, t_cap=None, interpret: bool = False) -> Hit:
+    """The BVH walk on the Pallas kernel (ops/mesh_kernel.py), one ray per
+    lane; `_finish` builds the hit record in XLA.
 
-    `active` is the integrator's alive mask: dead lanes neither admit BVH
-    nodes nor loosen packet termination. `t_cap` is the best hit distance
-    already found in cheaper primitive groups — traversal never admits a
-    node beyond it. sort_rays additionally groups rays into packets by
-    direction octant (stable, so already-coherent primary packets are
-    preserved). bin_mode != "never" instead reorders rays WITHIN 1024-lane
-    supertiles by a coherence key via gather-free one-hot MXU permutations
-    (ops/binning.py) — root-box-missing and dead lanes compact to the tail
-    so trailing packets skip traversal entirely."""
-    from raysnail_tpu.ops import binning, bvh_pallas
+    `active` is the integrator's alive mask: dead lanes do not walk and
+    report a miss. `t_cap` is the best hit distance already found in cheaper
+    primitive groups — traversal never admits a node beyond it. Inputs are
+    detached: geometry gradients are out of scope, and no tangent may reach
+    the kernel."""
+    from raysnail_tpu.ops import mesh_kernel
 
     n = jnp.shape(ray.direction.x)[0]
-    ox, oy, oz = ray.origin.x, ray.origin.y, ray.origin.z
-    dx, dy, dz = ray.direction.x, ray.direction.y, ray.direction.z
     cap = (jnp.full(n, BIG, jnp.float32) if t_cap is None
-           else jax.lax.stop_gradient(jnp.asarray(t_cap, jnp.float32)))
+           else jnp.asarray(t_cap, jnp.float32))
     if active is not None:
         cap = jnp.where(active, cap, -1.0)
-
-    order = None
-    if sort_rays:
-        octant = (
-            (dx < 0).astype(jnp.int32) * 4
-            + (dy < 0).astype(jnp.int32) * 2
-            + (dz < 0).astype(jnp.int32)
-        )
-        order = jnp.argsort(octant, stable=True)
-        take = lambda a: jnp.take(a, order)
-        ox, oy, oz, dx, dy, dz, cap = map(take, (ox, oy, oz, dx, dy, dz, cap))
-
-    padq = bvh_pallas.TILE_R
-    if bin_mode != "never":
-        # binning sorts within B-lane supertiles: pad to a common multiple
-        # (extra lanes are dead -> compact to the tail -> packets skip)
-        assert binning.B % padq == 0 or padq % binning.B == 0, binning.B
-        padq = max(padq, binning.B)
-    pad = (-n) % padq
-
-    def p(a):
-        return jnp.pad(a, (0, pad)) if pad else a
-
-    pox, poy, poz = p(ox), p(oy), p(oz)
-    pdx, pdy, pdz = p(dx), p(dy), p(dz)
-    pcap = p(cap)
-    P = None
-    if bin_mode != "never":
-        assert order is None, "sort_rays and bin_mode are exclusive"
-        root_bb = group.pk_bb[0, 0, :6]
-        kb = binning.keys(pox, poy, poz, pdx, pdy, pdz, pcap, root_bb,
-                          t_min, bin_mode)
-        P = binning.perm(kb, binning.MODE_KEYS[bin_mode])
-        pox, poy, poz, pdx, pdy, pdz, pcap = binning.apply(
-            P, [pox, poy, poz, pdx, pdy, pdz, pcap])
-
-    # block lane width identifies the pack format (scene._pack_mxu_blocks
-    # vs _pack_leaf_blocks): 640 = MXU one-matmul solve, 128 = VPU Cramer
-    kind = "tri_mxu" if group.pk_tri.shape[2] == bvh_pallas.MXU_LANES else "tri"
-    t, nx, ny, nz, _, mat = bvh_pallas.bvh_traverse(
-        (pox, poy, poz), (pdx, pdy, pdz), pcap,
-        group.pk_bb, group.pk_links, group.pk_tri,
-        jnp.float32(t_min), jnp.float32(t_max), kind=kind,
-        interpret=interpret,
-        cbb=group.pk_cbb, crange=group.pk_crange,
-    )
-    if P is not None:
-        # misses carry t = BIG: exact under the one-hot matmul (0 + BIG)
-        t, nx, ny, nz, matf = binning.unapply(
-            P, [t, nx, ny, nz, mat.astype(jnp.float32)])
-        mat = jnp.round(matf).astype(jnp.int32)
-    t, nx, ny, nz, mat = t[:n], nx[:n], ny[:n], nz[:n], mat[:n]
-    if order is not None:
-        inv = jnp.zeros_like(order).at[order].set(
-            jnp.arange(n, dtype=order.dtype))
-        take = lambda a: jnp.take(a, inv)
-        t, nx, ny, nz, mat = map(take, (t, nx, ny, nz, mat))
-
-    valid = t < BIG * 0.5
-    # miss lanes carry zero normals; keep unit() NaN-free
-    normal = Vec3(nx, ny, jnp.where(valid, nz, 1.0)).unit()
-    z = jnp.zeros_like(t)
-    # with_normal semantics: normal as given, outside = true
-    return Hit(
-        t=jnp.where(valid, t, BIG), valid=valid, normal=normal, u=z, v=z,
-        mat_id=jnp.where(valid, mat, -1).astype(jnp.int32),
-        outside=jnp.ones_like(valid),
-    )
+    sg = jax.lax.stop_gradient
+    best_t, best_tri, beta, gamma = mesh_kernel.traverse(
+        sg(group), sg(ray.origin), sg(ray.direction), sg(cap),
+        t_min=float(t_min), t_max=float(t_max), interpret=interpret)
+    return _finish(group, ray, best_t, best_tri, beta, gamma)

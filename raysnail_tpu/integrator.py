@@ -3,8 +3,8 @@
 Replicates the reference's recursive `ray_color` (src/camera.rs:156-255) as an
 iterative bounce loop (lax.scan over the depth budget) over a dense ray batch
 with masked lanes instead of recursion — rays that die keep flowing with
-alive=False (static shapes; divergence costs masked VPU work, not control
-flow).
+alive=False (static shapes; divergence costs masked elementwise work, not
+control flow).
 
 Estimator (compat path, the default — camera.rs:194-247):
   * emitted term added every bounce (before scattering);
@@ -41,15 +41,6 @@ from raysnail_tpu.prelude import rng as prng
 from raysnail_tpu.prelude.sampling import PI
 from raysnail_tpu.prelude.vec import Vec3
 
-# Measured crossover for routing static sphere groups through the pallas
-# traversal kernel instead of the dense sweep (scripts/ab_spherebvh_scale.py
-# + ab_spherebvh.py, 1x v5e, 400x225 frames):
-#   478 spheres (rtow_13_1, depth 8): dense 8.86 vs kernel 1.81  -> dense 4.9x
-#   8192 jittered-grid (depth 4):     dense 1.26 vs kernel 1.55  -> kernel 1.2x
-#   32768:                            dense 0.41 vs kernel 1.27  -> kernel 3.1x
-# "force" ignores this (tests).
-SPHERE_BVH_AUTO_MIN = 4096
-
 def _slot_layout(kinds: frozenset, has_lights: bool, mix_depth: int = 1):
     """Per-bounce uniform slots, allocated only for the material/light kinds
     the scene actually contains — RNG is a first-order cost, so a pure
@@ -83,58 +74,43 @@ def radiance(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     return radiance_and_alive(scene, arrays, cfg, ray, keys)[0]
 
 
-def _pallas_policy(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
-                   cfg: RenderConfig) -> dict:
-    """Kernel-routing flags for scenelib.intersect: the v4 traversal kernel
-    (ops/bvh_pallas.py) carries both the mesh path and large static sphere
-    groups on accelerators; the old dense-sweep sphere kernel
-    (ops/sphere_pallas.py) stays behind "force" for tests. CPU runs
-    everything through fused XLA (pallas only under interpret, for tests)."""
-    on_cpu = jax.default_backend() == "cpu"
-    use_pallas = cfg.use_pallas == "force"
-    mesh_pallas = cfg.mesh_pallas == "force" or (
-        cfg.mesh_pallas == "auto" and not on_cpu
-    )
-    # sphere_bvh "auto" gate is COUNT-aware: at 478 spheres (rtow_13_1,
-    # 400x225@16spp depth 8, v5e) the traversal kernel measured 1.81 Mrays/s
-    # vs 8.86 for the dense (rays x spheres) sweep — the pairwise sweep is
-    # embarrassingly vectorizable and wins until the O(S) work dwarfs the
-    # kernel's scalar walk overhead (see scripts/ab_spherebvh_scale.py).
-    n_spheres = (
-        int(arrays.spheres.radius.shape[0]) if arrays.spheres is not None else 0
-    )
-    sphere_bvh = cfg.sphere_bvh == "force" or (
-        cfg.sphere_bvh == "auto" and not on_cpu
-        and n_spheres >= SPHERE_BVH_AUTO_MIN
-    )
-    # box groups get a packed BVH only when large enough (scene compile
-    # gates the build at BOX_BVH_MIN_BUILD); "auto" then routes them
-    # through the kernel on accelerators
-    has_box_pk = arrays.boxes is not None and arrays.boxes.pk_bb is not None
-    box_pallas = has_box_pk and (
-        cfg.box_bvh == "force" or (cfg.box_bvh == "auto" and not on_cpu)
-    )
-    return dict(
-        use_pallas=use_pallas,
-        pallas_interpret=use_pallas and on_cpu,
-        mesh_pallas=mesh_pallas,
-        mesh_interpret=mesh_pallas and on_cpu,
-        mesh_sort=cfg.mesh_sort,
-        # "auto" resolves to the measured-best supertile binning mode on
-        # accelerators (A/B on mesh+arealight, v5e: never 1.14 / miss 1.28 /
-        # dir 1.34 / entry 1.48 Mrays/s); binning only costs on CPU interpret.
-        # mesh_sort (the whole-batch octant argsort) and binning are mutually
-        # exclusive orderings — triangles.intersect_pallas asserts order is
-        # None when bin_mode != "never" — so "auto" defers to an explicit
-        # mesh_sort=True (ADVICE r4).
-        mesh_bin=(("entry" if mesh_pallas and not on_cpu and not cfg.mesh_sort
-                   else "never")
-                  if cfg.mesh_bin == "auto" else cfg.mesh_bin),
-        sphere_bvh=sphere_bvh,
-        sphere_bvh_interpret=sphere_bvh and on_cpu,
-        box_pallas=box_pallas,
-        box_interpret=box_pallas and on_cpu,
-    )
+# Scattered rays start SURFACE_EPS * max(1, |p|) off the surface (see
+# _make_shade); the reference's f64 needs no such offset.
+SURFACE_EPS = 1e-5
+
+# Traversal route of each primitive group kind, keyed by the real backend.
+# Only triangle meshes have a hand-written kernel (ops/mesh_kernel.py, Pallas
+# through Triton), and only on a GPU; box and sphere groups of any size take
+# their dense XLA sweeps everywhere.
+ROUTES = {
+    "gpu": {"mesh": "kernel", "boxes": "dense", "spheres": "dense"},
+    "cpu": {"mesh": "xla", "boxes": "dense", "spheres": "dense"},
+}
+
+
+def routes(cfg: RenderConfig, backend: str) -> dict:
+    """Group kind -> traversal route on `backend` under cfg.mesh_pallas:
+    "kernel" (compiled), "interpret" (the kernel in Pallas interpret mode,
+    CPU tests only), "xla" (the XLA walk or dense sweep) or "dense"."""
+    if backend not in ROUTES:
+        raise ValueError(f"no traversal routes for backend {backend!r}")
+    out = dict(ROUTES[backend])
+    if cfg.mesh_pallas == "never":
+        out["mesh"] = "xla"
+    elif cfg.mesh_pallas == "force":
+        out["mesh"] = "interpret" if backend == "cpu" else "kernel"
+    elif cfg.mesh_pallas != "auto":
+        raise ValueError(f"mesh_pallas must be auto|never|force, "
+                         f"got {cfg.mesh_pallas!r}")
+    return out
+
+
+def _pallas_policy(cfg: RenderConfig, backend: str | None = None) -> dict:
+    """Kernel-routing flags for scenelib.intersect on `backend` (default:
+    the backend JAX computes on)."""
+    mesh = routes(cfg, backend or jax.default_backend())["mesh"]
+    return dict(mesh_kernel=mesh in ("kernel", "interpret"),
+                mesh_interpret=mesh == "interpret")
 
 
 def _make_shade(scene: scenelib.Scene, cfg: RenderConfig, policy: dict):
@@ -227,11 +203,20 @@ def _make_shade(scene: scenelib.Scene, cfg: RenderConfig, policy: dict):
         weight = val / denom
         multi = jnp.where(use_light, light_multi, 1.0)
 
-        # shadow back-off start for the light branch (camera.rs:208-212)
-        pdf_origin = Vec3.where(use_light, o + d * (hit.t - cfg.shadow_eps), p)
-
         new_d = Vec3.where(skip, spec_dir, pdf_dir)
-        new_o = Vec3.where(skip, p, pdf_origin)
+        # the light branch starts from the reference's shadow back-off
+        # along the incoming ray (camera.rs:208-212), the others from p.
+        # Either way the new ray then starts SURFACE_EPS * max(1, |p|) off
+        # the surface, on the side it leaves by: in f32 a ray started on
+        # the surface can re-hit it just past t_min (grazing rays at scene
+        # scales of ~1e3), a self-hit whose outcome turns on the last bits
+        # of p.
+        start = Vec3.where(use_light & ~skip,
+                           o + d * (hit.t - cfg.shadow_eps), p)
+        side = jnp.where(new_d.dot(hit.normal) < 0.0, -1.0, 1.0)
+        scale = jnp.maximum(1.0, jnp.maximum(jnp.maximum(
+            jnp.abs(p.x), jnp.abs(p.y)), jnp.abs(p.z)))
+        new_o = start + hit.normal * (side * SURFACE_EPS * scale)
         t_mult = jnp.where(skip, 1.0, weight * multi)
         T = Vec3.where(active, T * tex_color * t_mult, T)
 
@@ -251,17 +236,12 @@ def radiance_and_alive(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     the occupancy diagnostic behind scripts/alive_stats.py's dead-lane
     analysis (DCE'd by XLA when the caller ignores it)."""
     shape = jnp.shape(ray.direction.x)
-    shade = _make_shade(scene, cfg, _pallas_policy(scene, arrays, cfg))
+    shade = _make_shade(scene, cfg, _pallas_policy(cfg))
 
     def bounce(carry, b):
-        # NOTE: an optional per-bounce live-lane compaction ("wavefront
-        # sort": stable-partition alive lanes to the front so traversal
-        # packets are dense) was implemented and benched in rounds 3-4 and
-        # REMOVED in round 5: it measured a loss on every scene it was ever
-        # tried on (book2 0.78 vs 2.66 Mrays/s in the r4 sweep; r3: 0.35 vs
-        # 0.58) — the argsort + ~16 gathers per bounce always cost more
-        # than the packet-density win, and the path-regeneration integrator
-        # below solves the same occupancy problem without any data movement.
+        # NOTE: no per-bounce live-lane compaction ("wavefront sort"): the
+        # path-regeneration integrator below solves the same occupancy
+        # problem without any data movement.
         o, d, time, T, L, alive = carry
         kb = prng.fold_all(keys, b)
         o, d, T, L, alive = shade(
@@ -294,8 +274,8 @@ def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
 
     The scan integrator's bounce loop runs at ~27-35% live-lane occupancy
     (scripts/alive_stats.py): most paths die after 1-2 bounces but the
-    remaining depth budget still executes as masked VPU work, and every
-    sample restarts the full-width loop. Here each lane owns ONE pixel and,
+    remaining depth budget still executes as masked elementwise work, and
+    every sample restarts the full-width loop. Here each lane owns ONE pixel and,
     the moment its path dies, starts the pixel's next sample in place —
     one lax.while_loop whose trip count is the worst lane's TOTAL path
     length over its samples instead of max_depth * spp. No sorts, no
@@ -316,7 +296,7 @@ def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     sqrt_spp = cfg.sqrt_spp
     if cfg.max_depth <= 0:  # depth 0 renders black (camera.rs:161-163)
         return Vec3.zeros(shape, dtype), jnp.asarray(0, jnp.int32)
-    shade = _make_shade(scene, cfg, _pallas_policy(scene, arrays, cfg))
+    shade = _make_shade(scene, cfg, _pallas_policy(cfg))
     s_end = jnp.asarray(s0 + n_samples, jnp.int32)
 
     def new_ray(sid):
@@ -407,7 +387,7 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
         if record_lengths:
             return out + (jnp.zeros((max(spp, 0), n_pix), dtype),)
         return out
-    policy = _pallas_policy(scene, arrays, cfg)
+    policy = _pallas_policy(cfg)
     shade = _make_shade(scene, cfg, policy)
 
     # chunk width: largest divisor of spp <= the cap — wide enough that a
@@ -415,22 +395,22 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     # that the per-iteration one-hot add stays a few dozen fma (3C fma) and
     # the (N, C) f32 cell tables stay small. cfg.regen_chunk_cap (retraces
     # when changed) with the env var as the default for perf probes — the
-    # env var alone is only read at first trace (ADVICE r3).
+    # env var alone is only read at first trace.
     import os
     cap = cfg.regen_chunk_cap or int(os.environ.get("RAYSNAIL_REGEN_C", "21"))
     C = max(d for d in range(1, min(spp, cap) + 1) if spp % d == 0)
     n_chunks = spp // C
 
-    # Scenes on a PACKET traversal kernel (mesh/box/sphere-BVH) need
-    # spatially COHERENT 128-lane packets: the plain golden-ratio pixel
-    # stride makes consecutive lanes far-apart pixels, which is exactly the
-    # kernel's worst case (measured 1.6 vs 14.9 Mrays/s raw traversal).
-    # There the shuffle rotates at PACKET granularity and lanes decode to
-    # 128-pixel image TILES, so every packet stays a tight frustum for all
-    # k while a lane's consecutive cells still land on far-apart packets.
-    packet_kernel = policy["mesh_pallas"] or policy["box_pallas"] or (
-        policy["sphere_bvh"] or policy["use_pallas"])
-    PKT = 128
+    # On the mesh kernel a block of PKT consecutive lanes walks the BVH
+    # together until its slowest lane is done, so blocks should be spatially
+    # COHERENT: the plain golden-ratio pixel stride makes consecutive lanes
+    # far-apart pixels. There the shuffle rotates at block granularity and
+    # lanes decode to PKT-pixel image TILES, so every block stays a tight
+    # frustum for all k while a lane's consecutive cells still land on
+    # far-apart blocks.
+    from raysnail_tpu.ops.mesh_kernel import BLOCK as PKT
+
+    packet_kernel = policy["mesh_kernel"]
     tile = None
     if packet_kernel and n_pix % PKT == 0:
         tile = next(((tw, th) for tw, th in
@@ -472,18 +452,16 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
         return r, keys_s
 
     # sliding-window cell table (cfg.regen_window = W < C): the (N, C) f32
-    # radiance tables' HBM carry traffic is the canonical frame's largest
-    # bookkeeping term (BASELINE.md breakdown: ~245 us/iter of the 463 us
-    # residual at C=21). With a window, cells land in column k % W; column r
-    # retires into the pixel accumulator by ONE uniform roll (cell r is the
-    # same cell index for every lane, so its slot->pixel shift r*S is
-    # uniform) as soon as every lane is past it, and a lane stalls only when
-    # it would run W cells ahead of the slowest lane (law-of-large-numbers
-    # concentration makes that rare at W ~ 6-8).
+    # radiance tables are carried through every loop iteration. With a
+    # window, cells land in column k % W; column r retires into the pixel
+    # accumulator by ONE uniform roll (cell r is the same cell index for
+    # every lane, so its slot->pixel shift r*S is uniform) as soon as every
+    # lane is past it, and a lane stalls only when it would run W cells ahead
+    # of the slowest lane (law-of-large-numbers concentration makes that
+    # rare at W ~ 6-8).
     # regen_window > 0: window with a lax.cond'd retire; < 0: |W| with an
-    # UNCONDITIONAL predicated retire — cond with large carried buffers can
-    # copy its operands on TPU, which the first A/B suggested wipes the
-    # traffic saving (W=8 cond variant measured -5% vs the full table)
+    # UNCONDITIONAL predicated retire (a cond with large carried buffers may
+    # copy its operands)
     W = min(C, abs(cfg.regen_window)) if cfg.regen_window != 0 else C
     pred_retire = cfg.regen_window < 0 and W < C
     colsW = jnp.arange(W, dtype=jnp.int32)

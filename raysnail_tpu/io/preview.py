@@ -2,7 +2,7 @@
 
 The reference opens an SDL2 window and streams finished rows to it over an
 mpsc channel (src/bin/raysnail.rs:211-308, src/painter.rs:214); closing the
-window cancels the render. A TPU host is headless, so the preview is a tiny
+window cancels the render. A GPU server is headless, so the preview is a tiny
 local HTTP server instead: an auto-refreshing page shows the accumulating
 image, and `PreviewServer.target` plugs into the same streaming-callback slot
 (`RenderSession.render(target=...)` / `render_passes(progress=...)`) that

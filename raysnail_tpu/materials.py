@@ -4,7 +4,7 @@ The reference dispatches `Arc<dyn Material>::scatter` returning a boxed PDF
 object (src/material/mod.rs:27-72). Here materials are rows of a SoA table;
 sampling and pdf evaluation compute every material *kind present in the
 scene* for the full batch and where-select by the per-ray material type —
-divergence costs one extra VPU pass per kind instead of scalar branching.
+divergence costs one extra elementwise pass per kind instead of scalar branching.
 
 Material kinds and reference behavior:
   LAMBERTIAN    CosinePdf about the normal               lambertian.rs:39-50
@@ -89,27 +89,15 @@ def resolve(table: MaterialTable, mat_id, u_mix, default_id: int = 0,
 
 
 def gather(table: MaterialTable, mat_id) -> Rows:
-    """Per-ray material rows. On accelerators a one-hot select is used
-    instead of a dynamic gather (TPU serializes gathers; see geometry/hit.py)."""
-    if jax.default_backend() != "cpu" and table.mtype.shape[0] <= 1024:
-        from raysnail_tpu.geometry import hit as hitlib
+    """Per-ray material rows (hit.take_table on every field)."""
+    from raysnail_tpu.geometry import hit as hitlib
 
-        onehot = hitlib.onehot_of(mat_id, table.mtype.shape[0])
-        sel = lambda a: hitlib.select_table(onehot, a)
-        return Rows(
-            mtype=sel(table.mtype), tex_id=sel(table.tex_id),
-            param0=sel(table.param0), param1=sel(table.param1),
-            emit_mult=sel(table.emit_mult), phong_factor=sel(table.phong_factor),
-            phong_exponent=sel(table.phong_exponent),
-        )
+    sel = lambda a: hitlib.take_table(a, mat_id)
     return Rows(
-        mtype=table.mtype[mat_id],
-        tex_id=table.tex_id[mat_id],
-        param0=table.param0[mat_id],
-        param1=table.param1[mat_id],
-        emit_mult=table.emit_mult[mat_id],
-        phong_factor=table.phong_factor[mat_id],
-        phong_exponent=table.phong_exponent[mat_id],
+        mtype=sel(table.mtype), tex_id=sel(table.tex_id),
+        param0=sel(table.param0), param1=sel(table.param1),
+        emit_mult=sel(table.emit_mult), phong_factor=sel(table.phong_factor),
+        phong_exponent=sel(table.phong_exponent),
     )
 
 
@@ -219,14 +207,10 @@ def bsdf_pdf_value(rows: Rows, ray_dir: Vec3, normal: Vec3, direction: Vec3,
 
 def gather_absorb(table: MaterialTable, mat_id) -> Vec3:
     """Per-ray Beer-Lambert absorption coefficients (extension)."""
-    if jax.default_backend() != "cpu" and table.mtype.shape[0] <= 1024:
-        from raysnail_tpu.geometry import hit as hitlib
+    from raysnail_tpu.geometry import hit as hitlib
 
-        onehot = hitlib.onehot_of(mat_id, table.mtype.shape[0])
-        return Vec3(*(hitlib.select_table(onehot, a)
-                      for a in (table.absorb.x, table.absorb.y, table.absorb.z)))
-    return Vec3(table.absorb.x[mat_id], table.absorb.y[mat_id],
-                table.absorb.z[mat_id])
+    return Vec3(*(hitlib.take_table(a, mat_id)
+                  for a in (table.absorb.x, table.absorb.y, table.absorb.z)))
 
 
 def specular_dir(rows: Rows, ray_dir: Vec3, normal: Vec3, outside, u_reflect,

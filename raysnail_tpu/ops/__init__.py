@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the hot intersection stages."""
+"""Hand-written Pallas kernels for the hot intersection stages (GPU)."""

@@ -5,7 +5,7 @@ and its multi-pass loop keeps the full framebuffer + redo map as implicit
 "checkpoint" state (SURVEY.md sect.5). Here that state is explicit and
 serializable: a RenderState carries (radiance sums, samples done, pass index,
 redo mask, seed), so a long render can stop at any chunk boundary and resume
-in a new process — the TPU-era equivalent of the reference's accumulate-and-
+in a new process — the device-side equivalent of the reference's accumulate-and-
 continue loop, plus what it lacked: real persistence.
 """
 

@@ -1,4 +1,4 @@
-"""Device-mesh parallelism: the TPU replacement for the reference's
+"""Device-mesh parallelism: the multi-GPU replacement for the reference's
 row-interleaved thread pool (src/painter.rs:239-302)."""
 
 from raysnail_tpu.parallel.mesh import make_mesh

@@ -5,8 +5,10 @@ The renderer's parallel axes (SURVEY.md sect.5 "long-context" mapping):
                decomposition, painter.rs:275-302, made spatial);
   * "sample" — stratification cells sharded across devices; partial radiance
                sums are combined with a psum over this axis.
-On multi-host pods, "tile" should map to DCN (hosts own disjoint pixels; no
-cross-host traffic until image assembly) and "sample" to ICI (fast psum).
+The cards of one host are joined all to all by NVLink at one rate, so the
+mesh follows the algorithm alone: any factoring of the devices into
+(tile, sample) costs the same links. The only collectives are the sample-axis
+psum of radiance sums and the whole-mesh gradient psum.
 """
 
 from __future__ import annotations

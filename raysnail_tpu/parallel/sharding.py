@@ -1,6 +1,7 @@
 """Sharded render and train steps over a ("tile", "sample") mesh.
 
-Design (idiomatic JAX: shard_map + explicit collectives riding ICI):
+Design (idiomatic JAX: shard_map + explicit collectives, which XLA hands to
+NCCL over the cards' NVLink):
   * scene arrays / camera / params are REPLICATED (small);
   * the flat pixel list is sharded over "tile";
   * stratification cells are sharded over "sample"; each device renders its
@@ -10,8 +11,8 @@ Design (idiomatic JAX: shard_map + explicit collectives riding ICI):
     the differentiated function) and all-reduces parameter gradients with a
     psum over the whole mesh — the renderer's DP gradient sync.
 
-This file is the TPU-native replacement for the reference's entire threading
-story (std::thread::scope row interleave + mpsc streaming,
+This file is the device-mesh replacement for the reference's entire
+threading story (std::thread::scope row interleave + mpsc streaming,
 painter.rs:239-302).
 """
 
@@ -169,9 +170,8 @@ def make_sharded_train_step(scene: scenelib.Scene, camera: Camera,
     from raysnail_tpu.diff.params import extract_params
 
     # gradients flow through the per-sample scan integrator (path_regen's
-    # while_loop is not reverse-differentiable) on fused XLA
-    cfg = cfg.replace(path_regen="never", use_pallas="never",
-                      sphere_bvh="never")
+    # while_loop is not reverse-differentiable)
+    cfg = cfg.replace(path_regen="never")
 
     if optimizer is None:
         optimizer = optax.adam(1e-2)
@@ -213,22 +213,21 @@ def make_sharded_train_step(scene: scenelib.Scene, camera: Camera,
         check_vma=False,
     )
     def loss_and_grads(params, key, ids, px, py, tgt, w):
-        def local_loss(p):
+        # differentiate only this device's radiance sums, never through a
+        # collective: the loss is linear in each device's (pixel-shard x
+        # cell-shard) sums once the mean image is fixed, so the global
+        # gradient is the psum of every device's VJP against dL/d(sums)
+        def local_sums(p):
             arrays = inject_params(scene.arrays, p)
-            sums = sample_sums(scene, cfg, arrays, camera, key, ids, px, py)
-            img = _psum_tree(sums, "sample") * (1.0 / total_cells)
-            d = img - Vec3.from_array(tgt)
-            per_pixel = 0.5 * d.dot(d) * w
-            # identical global loss on every device (psum over both axes)
-            return jax.lax.psum(jnp.sum(per_pixel), ("tile", "sample")) / (
-                n_pix * n_sample
-            )
+            return sample_sums(scene, cfg, arrays, camera, key, ids, px, py)
 
-        loss, grads = jax.value_and_grad(local_loss)(params)
-        # DP gradient all-reduce; local_loss is already global, so each
-        # device's grad holds only its shard's contribution
-        grads = _psum_tree(grads, ("tile", "sample"))
-        return loss, grads
+        sums, vjp = jax.vjp(local_sums, params)
+        img = _psum_tree(sums, "sample") * (1.0 / total_cells)
+        d = img - Vec3.from_array(tgt)
+        # identical global loss on every device
+        loss = jax.lax.psum(jnp.sum(0.5 * d.dot(d) * w), "tile") / n_pix
+        (grads,) = vjp(d * (w / (n_pix * total_cells)))
+        return loss, _psum_tree(grads, ("tile", "sample"))
 
     @jax.jit
     def step(params, opt_state, key):

@@ -1,9 +1,9 @@
 """Batched 3-vectors as a struct-of-arrays pytree.
 
 The reference stores `Vec3 { x, y, z: f64 }` scalars (src/prelude/vec3.rs).
-On TPU the idiomatic layout is struct-of-arrays: a Vec3 holds three same-shape
-jnp arrays, so every component maps onto clean (8,128) VPU tiles instead of a
-padded trailing dim of 3. All arithmetic is elementwise over arbitrary batch
+On an accelerator the idiomatic layout is struct-of-arrays: a Vec3 holds three
+same-shape jnp arrays, so every component is a contiguous, coalesced array
+instead of a strided trailing dim of 3. All arithmetic is elementwise over arbitrary batch
 shapes; Vec3 is a registered pytree, so it flows through jit/scan/grad/sharding.
 """
 

@@ -13,7 +13,7 @@ updates (raysnail.rs:369-372 vs 405-424) — so the reference re-renders every
 pixel each pass. We implement the evidently-intended behavior: later passes
 re-render only pixels whose noise exceeds the threshold, with the active
 pixel set COMPACTED host-side (padded to a power of two to bound retraces) so
-sparse passes really are cheaper — the TPU equivalent of the redo map.
+sparse passes really are cheaper — the device-side form of the redo map.
 """
 
 from __future__ import annotations
@@ -49,9 +49,8 @@ def sample_sums(scene: scenelib.Scene, cfg: RenderConfig,
 
     backend = cfg.rng
     if backend == "auto":
-        # fast everywhere: the fmix32 hash measured +62% end-to-end on
-        # TPU v5e once dispatches were spp-batched (the earlier "threefry
-        # on TPU" pick predated that regime and no longer holds)
+        # fast everywhere: the fmix32 counter hash is cheaper than threefry
+        # and the path-regeneration integrators need it
         backend = "fast"
 
     if backend == "fast":
@@ -82,8 +81,7 @@ def sample_sums(scene: scenelib.Scene, cfg: RenderConfig,
 
     # accumulate IN the scan carry (not lax.map + stack + sum): memory per
     # dispatch is O(P) regardless of how many samples it covers, which is
-    # what lets a whole 64-spp frame ride one dispatch (dispatch round-trips
-    # cost ~45ms on the remote TPU runtime — see RenderConfig.ray_batch)
+    # what lets a whole 64-spp frame ride one dispatch
     def accumulate(acc, sid):
         return acc + one_sample(sid), None
 
@@ -115,7 +113,7 @@ def make_frame_step(scene: scenelib.Scene, cfg: RenderConfig):
     if scene.mandelbulbs:
         # the distance-field march skips all-miss 32k-lane BLOCKS
         # (geometry/mandelbulb.py) — that needs spatially clustered lanes,
-        # which the cross-pixel shuffle destroys (r3 bench: passes4 halved).
+        # which the cross-pixel shuffle destroys.
         # The sample-step path keeps lane = pixel in image-tile order and
         # still runs plain per-pixel regeneration.
         return None
@@ -134,13 +132,13 @@ def _full_grid(cfg: RenderConfig):
     return px.ravel().astype(np.float32), py.ravel().astype(np.float32)
 
 
-TILE_W, TILE_H = 16, 8  # 16x8 = 128 pixels = one traversal packet
+TILE_W, TILE_H = 16, 8  # 16x8 = 128 pixels = one mesh-kernel block
 
 
 def _tile_key(px, py, width: int):
     """Spatial sort key: 16x8 image tiles in row-major tile order, row-major
-    within the tile. 128 consecutive rays = one compact-frustum packet for
-    the pallas traversal (ops/bvh_pallas.py) instead of a 3-image-row strip."""
+    within the tile. 128 consecutive rays = one compact-frustum block for
+    the mesh kernel (ops/mesh_kernel.py) instead of a 3-image-row strip."""
     x = np.asarray(px, np.int64)
     y = np.asarray(py, np.int64)
     tiles_x = -(-width // TILE_W)
@@ -296,8 +294,8 @@ def render_passes(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
         idx = idx[np.argsort(_tile_key(px_full[idx], py_full[idx], w),
                              kind="stable")]
         # pad the active set to one of a FEW fixed buckets (full, full/4,
-        # full/16, ...): every distinct shape is a separate XLA program, and
-        # remote compiles cost tens of seconds — wasted lanes are far cheaper
+        # full/16, ...): every distinct shape is a separate XLA program to
+        # compile — wasted lanes are far cheaper
         bucket = h * w
         while bucket // 4 >= max(n_active, 1024):
             bucket //= 4

@@ -18,7 +18,6 @@ hot path has no transform facade.
 from __future__ import annotations
 
 import dataclasses
-import os as _os
 from typing import NamedTuple, Optional
 
 import jax
@@ -83,23 +82,14 @@ class Scene:
         return intersect(self, self.arrays, ray, t_min, t_max, key)
 
 
-# axis-aligned box groups at least this large get a packed BVH for the
-# pallas traversal kernel (the dense slab sweep stays for small groups)
-BOX_BVH_MIN_BUILD = 130
-
-
 def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max, key,
-              use_pallas: bool = False, pallas_interpret: bool = False,
-              mesh_pallas: bool = False, mesh_interpret: bool = False,
-              mesh_sort: bool = False, mesh_bin: str = "never",
-              sphere_bvh: bool = False,
-              sphere_bvh_interpret: bool = False, box_pallas: bool = False,
-              box_interpret: bool = False, active=None) -> Hit:
+              mesh_kernel: bool = False, mesh_interpret: bool = False,
+              active=None) -> Hit:
     """Closest hit across all primitive groups. `arrays` is passed separately
     so a jitted caller can thread traced arrays while `scene` supplies the
     static structure. `key` is the per-ray key batch (only media draw from
-    it). `active` is the integrator's alive mask — the pallas traversal paths
-    use it to stop dead lanes from admitting BVH nodes."""
+    it). `active` is the integrator's alive mask — the mesh kernel uses it
+    to stop dead lanes from walking the BVH."""
     best = miss(jnp.shape(ray.direction.x), ray.direction.x.dtype)
     if arrays.spheres is not None:
         best = combine_hits(
@@ -107,22 +97,11 @@ def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max, key,
             spheres.intersect(arrays.spheres, ray, t_min, t_max,
                               moving=scene.static.moving,
                               chunk=scene.static.sphere_chunk,
-                              need_uv=texlib.IMAGE in scene.static.tex_modes,
-                              use_pallas=use_pallas,
-                              pallas_interpret=pallas_interpret,
-                              use_bvh=sphere_bvh,
-                              bvh_interpret=sphere_bvh_interpret,
-                              active=active),
+                              need_uv=texlib.IMAGE in scene.static.tex_modes),
         )
     if arrays.boxes is not None:
-        if box_pallas and arrays.boxes.pk_bb is not None:
-            # sphere hits (above) cap the traversal via t_cap
-            best = combine_hits(best, boxes.intersect_pallas(
-                arrays.boxes, ray, t_min, t_max, active=active,
-                t_cap=best.t, interpret=box_interpret))
-        else:
-            best = combine_hits(
-                best, boxes.intersect(arrays.boxes, ray, t_min, t_max))
+        best = combine_hits(
+            best, boxes.intersect(arrays.boxes, ray, t_min, t_max))
     if arrays.rects is not None:
         best = combine_hits(best, rects.intersect(arrays.rects, ray, t_min, t_max))
     if arrays.quadrics is not None:
@@ -130,15 +109,13 @@ def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max, key,
     if arrays.triangles is not None:
         # geometry gradients are out of scope: detach the mesh hit (the BVH
         # while_loop is not reverse-differentiable anyway)
-        if use_pallas or mesh_pallas:
+        if mesh_kernel:
             # `best` from the cheap dense groups above caps the traversal:
             # a bounce ray that already hit the ground sphere at t=0.5 never
             # admits mesh nodes beyond it
-            tri_hit = triangles.intersect_pallas(
+            tri_hit = triangles.intersect_kernel(
                 arrays.triangles, ray, t_min, t_max, active=active,
-                t_cap=best.t,
-                interpret=pallas_interpret or mesh_interpret,
-                sort_rays=mesh_sort, bin_mode=mesh_bin)
+                t_cap=best.t, interpret=mesh_interpret)
         elif scene.static.tri_brute:
             tri_hit = triangles.intersect_brute(arrays.triangles, ray, t_min, t_max)
         else:
@@ -332,10 +309,9 @@ class _Tables:
 
 def _perlin_tables(spec: ir.Noise):
     """Per-noise lattice parameters. The lattice VALUES are hash-derived on
-    the fly (textures._lattice_corner) — the explicit float/vec/perm tables
-    of noise.rs:41-70 became 44 serialized per-lane gathers per evaluation
-    on TPU (4x the whole book2 frame, scripts/ablate_book2.py); only the
-    seed, vector flag and smoothing mode remain."""
+    the fly (textures._lattice_corner) instead of the explicit
+    float/vec/perm tables of noise.rs:41-70 (44 per-lane gathers per
+    evaluation); only the seed, vector flag and smoothing mode remain."""
     seed = np.uint32((spec.seed + 12345) & 0xFFFFFFFF)
     smooth = {"none": 0, "linear": 1, "hermitian": 2}[spec.smooth]
     return seed, bool(spec.vector), smooth
@@ -432,30 +408,12 @@ def _compile(builder: SceneBuilder, dtype) -> Scene:
         speeds = np.asarray([s[2] for s in sph] + [(0, 0, 0)] * pad, np.float64)
         mats = np.asarray([s[3] for s in sph] + [-1] * pad, np.int32)
         active = np.asarray([True] * n + [False] * pad)
-        # packed BVH blocks for the pallas kernel: worth it for big static
-        # sphere sets (rtow_13_1's 478 spheres); motion blur stays on the
-        # dense path (centers move per-ray with time)
-        pk_bb = pk_links = pk_sph = pk_cbb = pk_crange = None
-        if n >= 64 and not moving:
-            c = centers[:n]
-            r = radii[:n]
-            ones = np.ones(n)
-            pk_bb, pk_links, pk_cbb, pk_crange, pk_sph = _pack_leaf_blocks(
-                c - r[:, None], c + r[:, None],
-                [c[:, 0], c[:, 1], c[:, 2], r * r, ones,
-                 np.asarray([s[3] for s in sph], np.float64), r],
-            )
         sphere_group = spheres.SphereGroup(
             center=Vec3.from_array(f32(centers)),
             radius=f32(radii),
             speed=Vec3.from_array(f32(speeds)),
             mat_id=jnp.asarray(mats),
             active=jnp.asarray(active),
-            pk_bb=jnp.asarray(pk_bb) if pk_bb is not None else None,
-            pk_links=jnp.asarray(pk_links) if pk_links is not None else None,
-            pk_sph=jnp.asarray(pk_sph) if pk_sph is not None else None,
-            pk_cbb=jnp.asarray(pk_cbb) if pk_cbb is not None else None,
-            pk_crange=jnp.asarray(pk_crange) if pk_crange is not None else None,
         )
 
     box_group = None
@@ -472,32 +430,9 @@ def _compile(builder: SceneBuilder, dtype) -> Scene:
             offs = np.asarray([b[4] if b[4] is not None else np.zeros(3) for b in box_list])
             inv_rows = tuple(Vec3.from_array(f32(rots[:, i, :])) for i in range(3))
             inv_off = Vec3.from_array(f32(offs))
-        pk_bb = pk_links = pk_box = pk_cbb = pk_crange = None
-        if not any_oriented and len(box_list) >= BOX_BVH_MIN_BUILD:
-            # packed BVH for the pallas traversal kernel: book2's 400-box
-            # ground (scene.rs:341-358) re-swept the dense (rays x boxes)
-            # slab test every bounce; the packet kernel sweeps only
-            # admitted 128-box leaf blocks (VERDICT r3 item 4)
-            pmin_np = np.asarray([b[0] for b in box_list], np.float64)
-            pmax_np = np.asarray([b[1] for b in box_list], np.float64)
-            ones = np.ones(len(box_list))
-            mats_np = np.asarray([b[2] for b in box_list], np.float64)
-            pk_bb, pk_links, pk_cbb, pk_crange, pk_box = _pack_leaf_blocks(
-                pmin_np, pmax_np,
-                [pmin_np[:, 0], pmin_np[:, 1], pmin_np[:, 2],
-                 pmax_np[:, 0], pmax_np[:, 1], pmax_np[:, 2],
-                 ones, mats_np],
-            )
-            pk_bb = jnp.asarray(pk_bb)
-            pk_links = jnp.asarray(pk_links)
-            pk_box = jnp.asarray(pk_box)
-            pk_cbb = jnp.asarray(pk_cbb)
-            pk_crange = jnp.asarray(pk_crange)
         box_group = boxes.BoxGroup(
             p_min=Vec3.from_array(pmin), p_max=Vec3.from_array(pmax),
             mat_id=mats, active=active, inv_rows=inv_rows, inv_off=inv_off,
-            pk_bb=pk_bb, pk_links=pk_links, pk_box=pk_box,
-            pk_cbb=pk_cbb, pk_crange=pk_crange,
         )
 
     rect_group = None
@@ -643,112 +578,6 @@ def _compile(builder: SceneBuilder, dtype) -> Scene:
                  media=tuple(media_nodes), mandelbulbs=tuple(bulbs))
 
 
-def _leaf_tree(bb_min, bb_max):
-    """Fat-leaf BVH (leaf = LANES prims) node arrays for the pallas
-    traversal kernel. -> (pk_bb (K, M, 8) f32, pk_links (K, M, 4) i32,
-    pk_cbb (K, 64, 8) f32, pk_crange (K, 64, 4) i32, order, pad mask, safe
-    indices, n_blocks) where K = 8 direction-octant node orders
-    (front-to-back traversal) for trees that fit SMEM 8x, else K = 1
-    (build order). pk_cbb/pk_crange are the TWO-LEVEL coarse cut
-    (accel.bvh.coarse_cut): <= 64 subtree-root bboxes + their DFS node
-    ranges, padded with never-admitting empty boxes."""
-    from raysnail_tpu.accel.bvh import build_bvh, coarse_cut, relinearize_octants
-    from raysnail_tpu.ops.bvh_pallas import COARSE_MAX, LANES
-
-    fat = build_bvh(bb_min, bb_max, leaf_size=LANES)
-    order = fat.prim_order
-    pad = order < 0
-    safe = np.where(pad, 0, order)
-
-    m = fat.bb_min.shape[0]
-    # 8 octant orders cost K*M*16 B of links SMEM (~590 KB usable): the cap
-    # covers the 200k-tri mesh's ~3.1k nodes (400 KB) — front-to-back
-    # ordering is what lets best_t prune divergent packets early there
-    oct_cap = int(_os.environ.get("RAYSNAIL_BVH_OCT_CAP", "4600"))
-    if m <= oct_cap:
-        bb8, links8 = relinearize_octants(fat)
-        links8[:, :, 0] //= LANES
-        pk_bb, pk_links = bb8, links8
-    else:
-        pk_bb = np.zeros((1, m, 8), np.float32)
-        pk_bb[0, :, 0:3] = fat.bb_min
-        pk_bb[0, :, 3:6] = fat.bb_max
-        pk_links = np.zeros((1, m, 4), np.int32)
-        pk_links[0, :, 0] = fat.first // LANES
-        pk_links[0, :, 1] = fat.count
-        pk_links[0, :, 2] = fat.miss
-    k_ord = pk_bb.shape[0]
-    pk_cbb = np.zeros((k_ord, COARSE_MAX, 8), np.float32)
-    pk_cbb[:, :, 0:3] = 1e30   # padding entries: empty box, never admits
-    pk_cbb[:, :, 3:6] = -1e30
-    pk_crange = np.full((k_ord, COARSE_MAX, 4), m, np.int32)
-    for k in range(k_ord):
-        cuts = coarse_cut(pk_links[k, :, 1], pk_links[k, :, 2],
-                          max_entries=COARSE_MAX)
-        starts = np.asarray([c[0] for c in cuts])
-        pk_cbb[k, :len(cuts), :] = pk_bb[k, starts, :]
-        pk_crange[k, :len(cuts), 0] = starts
-        pk_crange[k, :len(cuts), 1] = np.asarray([c[1] for c in cuts])
-    return (pk_bb, pk_links, pk_cbb, pk_crange, order, pad, safe,
-            len(order) // LANES)
-
-
-def _pack_leaf_blocks(bb_min, bb_max, fields):
-    """Fat-leaf BVH (leaf = LANES prims) + (B, NF, LANES) field blocks for
-    the pallas traversal kernel (ops/bvh_pallas.py): fields on sublanes,
-    primitives on lanes — the compact layout with no lane padding. Padding
-    rows are zeroed, so a `valid` field of ones marks real primitives.
-
-    fields: list of (P,) float arrays, one per block row; NF rounds up to a
-    multiple of 8 (f32 sublane tile).
-    -> (pk_bb (K, M, 8) f32, pk_links (K, M, 4) i32,
-        pk_cbb (K, 64, 8) f32, pk_crange (K, 64, 4) i32,
-        pk_prim (B, NF, LANES) f32)
-    """
-    from raysnail_tpu.ops.bvh_pallas import LANES
-
-    (pk_bb, pk_links, pk_cbb, pk_crange, order, pad, safe,
-     n_blocks) = _leaf_tree(bb_min, bb_max)
-    nf = -(-len(fields) // 8) * 8
-    pk = np.zeros((n_blocks, nf, LANES), np.float32)
-    for i, f in enumerate(fields):
-        vals = np.where(pad, 0.0, np.asarray(f, np.float64)[safe])
-        pk[:, i, :] = vals.reshape(n_blocks, LANES)
-    return pk_bb, pk_links, pk_cbb, pk_crange, pk
-
-
-def _pack_mxu_blocks(bb_min, bb_max, nrm, q, r, e1, e2, np0, attr_fields):
-    """MXU-solve leaf blocks (ops/bvh_pallas.py NF_MXU): (B, 16, 640) —
-    lanes 0:512 the solve table F (denom | t | beta | gamma columns of the
-    one-matmul Cramer solve), lanes 512:640 the attr table
-    [valid, mat, n0, n1, n2]."""
-    from raysnail_tpu.ops.bvh_pallas import LANES, MXU_LANES, NF_MXU
-
-    (pk_bb, pk_links, pk_cbb, pk_crange, order, pad, safe,
-     n_blocks) = _leaf_tree(bb_min, bb_max)
-
-    def ro(a):
-        """(P,) or (P,3) -> padded-reordered (n_blocks, LANES[, 3])."""
-        vals = np.asarray(a, np.float64)[safe]
-        vals[pad] = 0.0
-        return vals.reshape((n_blocks, LANES) + vals.shape[1:])
-
-    pk = np.zeros((n_blocks, NF_MXU, MXU_LANES), np.float32)
-    nrm_o, q_o, r_o = ro(nrm), ro(q), ro(r)
-    e1_o, e2_o, np0_o = ro(e1), ro(e2), ro(np0)
-    for ax in range(3):
-        pk[:, ax, 0:128] = nrm_o[:, :, ax]          # denom: d . n
-        pk[:, 3 + ax, 128:256] = nrm_o[:, :, ax]    # t: o-part = n
-        pk[:, ax, 256:384] = q_o[:, :, ax]          # beta: d-part
-        pk[:, 6 + ax, 256:384] = e2_o[:, :, ax]     # beta: (o x d)-part = dd
-        pk[:, ax, 384:512] = r_o[:, :, ax]          # gamma: d-part
-        pk[:, 6 + ax, 384:512] = -e1_o[:, :, ax]    # gamma: (o x d)-part = -a
-    pk[:, 9, 128:256] = -np0_o                      # t: const = -(n . p0)
-    for i, f in enumerate(attr_fields):
-        pk[:, i, 512:640] = ro(f)
-    return pk_bb, pk_links, pk_cbb, pk_crange, pk
-
-
 def _build_triangles(mesh_list, f32):
     """Merge all meshes into one triangle pool + one BVH; reorder per-face
     data into BVH leaf order (padding rows get mat_id = -2)."""
@@ -789,40 +618,6 @@ def _build_triangles(mesh_list, f32):
 
     p0o = reorder(p0); p1o = reorder(p1); p2o = reorder(p2)
 
-    # packed layout for the pallas traversal kernel (ops/bvh_pallas.py):
-    # geometry + vertex normals + material per block so the kernel finishes
-    # hits itself (no XLA gathers on the mesh path at all)
-    e1 = p0 - p1
-    e2 = p0 - p2
-    ones = np.ones(len(p0))
-    import os as _os
-    # default cramer: the MXU one-matmul solve MEASURED ~20% slower end-to-
-    # end on v5e (kern_sweepstats r4: shuffled 41.4 vs 33.2 ms — the
-    # (128,16)x(16,512) HIGHEST-precision matmul + operand staging costs
-    # more than the ~55 VPU ops it replaces); kept behind the env knob as
-    # measured evidence
-    if _os.environ.get("RAYSNAIL_MESH_SOLVER", "cramer") == "mxu":
-        # MXU solve format (bvh_pallas NF_MXU): per-tri features so one
-        # (128,16)x(16,512) matmul yields denom/t/beta/gamma numerators
-        nrm = np.cross(e1, e2)          # n = a x dd
-        q = np.cross(p0, e2)            # p0 x dd   (beta, d-part)
-        r = np.cross(e1, p0)            # a x p0    (gamma, d-part)
-        np0 = np.sum(nrm * p0, axis=1)  # n . p0
-        pk_bb, pk_links, pk_cbb, pk_crange, pk_tri = _pack_mxu_blocks(
-            bb_min, bb_max, nrm, q, r, e1, e2, np0,
-            [ones, mat.astype(np.float64),
-             n0[:, 0], n0[:, 1], n0[:, 2], n1[:, 0], n1[:, 1], n1[:, 2],
-             n2[:, 0], n2[:, 1], n2[:, 2]],
-        )
-    else:
-        pk_bb, pk_links, pk_cbb, pk_crange, pk_tri = _pack_leaf_blocks(
-            bb_min, bb_max,
-            [p0[:, 0], p0[:, 1], p0[:, 2], e1[:, 0], e1[:, 1], e1[:, 2],
-             e2[:, 0], e2[:, 1], e2[:, 2], ones,
-             n0[:, 0], n0[:, 1], n0[:, 2], n1[:, 0], n1[:, 1], n1[:, 2],
-             n2[:, 0], n2[:, 1], n2[:, 2], mat.astype(np.float64)],
-    )
-
     return triangles.TriangleGroup(
         p0=Vec3.from_array(f32(p0o)),
         edge_a=Vec3.from_array(f32(p0o - p1o)),
@@ -836,11 +631,6 @@ def _build_triangles(mesh_list, f32):
         first=jnp.asarray(bvh.first),
         count=jnp.asarray(bvh.count),
         miss=jnp.asarray(bvh.miss),
-        pk_bb=jnp.asarray(pk_bb),
-        pk_links=jnp.asarray(pk_links),
-        pk_tri=jnp.asarray(pk_tri),
-        pk_cbb=jnp.asarray(pk_cbb),
-        pk_crange=jnp.asarray(pk_crange),
     )
 
 

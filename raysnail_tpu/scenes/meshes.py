@@ -68,3 +68,30 @@ def torus_knot(p: int = 2, q: int = 3, n_seg: int = 400, n_ring: int = 32,
             faces.append([b, d, c])
     return (np.asarray(verts, np.float64), np.asarray(faces, np.int32),
             np.asarray(norms, np.float64))
+
+
+def knot_scene(n_seg: int, n_ring: int):
+    """The bench's mesh workload: a DiffuseMetal torus knot (~n_seg*n_ring*2
+    triangles; 1600 x 64 gives the ~205k-triangle mesh-200k scene) on a
+    ground sphere under one emissive sphere light. -> SceneBuilder."""
+    from raysnail_tpu import ir
+    from raysnail_tpu.scene import SceneBuilder
+
+    v, f, n = torus_knot(n_seg=n_seg, n_ring=n_ring)
+    b = SceneBuilder()
+    b.add(ir.Mesh(vertices=v, indices=f, normals=n,
+                  material=ir.DiffuseMetal(400.0, ir.Constant((0.8, 0.6, 0.3)))))
+    b.add(ir.Sphere((0, -1001.3, 0), 1000.0,
+                    ir.Lambertian(ir.Constant((0.4, 0.4, 0.45)))))
+    b.add(ir.Sphere((4, 6, 3), 1.5,
+                    ir.DiffuseLight(ir.Constant((1.0, 0.95, 0.9)), 8.0)),
+          light=True)
+    b.set_background((0.05, 0.05, 0.08), (0.1, 0.12, 0.2))
+    return b
+
+
+def knot_camera(width: int, height: int):
+    from raysnail_tpu.camera import build_camera
+
+    return build_camera(look_from=(0, 1.5, 4), look_at=(0, 0, 0), fov=45,
+                        width=width, height=height)

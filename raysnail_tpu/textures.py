@@ -50,13 +50,11 @@ class TextureTable(NamedTuple):
     atlas_wh: jax.Array | None = None    # (I, 2) int32 (width, height)
     # perlin lattice (None when the scene has no perlin textures). The
     # lattice is HASH-based: no float/vec/perm tables — the reference's
-    # perm_x[i]^perm_y[j]^perm_z[k] table walk (noise.rs:85-95) became 44
-    # per-lane dynamic gathers per evaluation, which XLA serializes on TPU;
-    # the book2 ablation measured the Perlin texture alone at 4x the whole
-    # frame (scripts/ablate_book2.py: full 0.54 vs no-perlin 2.22 Mrays/s).
-    # An fmix32 avalanche hash of the lattice point reproduces the same
+    # perm_x[i]^perm_y[j]^perm_z[k] table walk (noise.rs:85-95) is 44
+    # per-lane dynamic gathers per evaluation (scripts/ablate_book2.py
+    # times the texture's share of the frame). An fmix32 avalanche hash of the lattice point reproduces the same
     # value DISTRIBUTIONS (floats uniform [0,1), gradients uniform on the
-    # sphere) in pure VPU arithmetic. Deviation documented in PARITY.md
+    # sphere) in pure elementwise arithmetic. Deviation documented in PARITY.md
     # (the reference's field is thread-rng seeded and unreplayable anyway).
     perlin_id: jax.Array | None = None      # (T,) int32 row into tables, -1
     perlin_seed: jax.Array | None = None    # (P,) uint32 lattice seed
@@ -71,12 +69,10 @@ def _checker_sign(table, tid, p: Vec3):
 
 
 def _take(a, tid):
-    """Backend-aware small-table fetch (one-hot on accelerators)."""
-    if jax.default_backend() != "cpu" and a.shape[0] <= 1024:
-        from raysnail_tpu.geometry import hit as hitlib
+    """Per-ray small-table fetch (hit.take_table)."""
+    from raysnail_tpu.geometry import hit as hitlib
 
-        return hitlib.select_table(hitlib.onehot_of(tid, a.shape[0]), a)
-    return a[tid]
+    return hitlib.take_table(a, tid)
 
 
 def _gather_color(c: Vec3, tid) -> Vec3:
@@ -122,8 +118,7 @@ def _perlin_noise(table, pid, p: Vec3):
     (noise.rs:97-137, 156-189), vectorized with the 8 corners unrolled.
     smooth codes: 0=none (nearest lattice point at 4x scale), 1=linear,
     2=hermitian cubic. Lattice values come from _lattice_corner's hash
-    (see TextureTable: the table-gather version measured 4x the whole
-    book2 frame on TPU)."""
+    (see TextureTable)."""
     smooth = table.perlin_smooth[pid]
     seed = table.perlin_seed[pid]
 

@@ -12,7 +12,8 @@ float-reassociation noise.
 Anchors are small CPU renders (seconds each); stats are a block-mean
 thumbnail plus global mean/std per channel, stored in tests/golden/golden.npz
 (regenerate with scripts/make_golden.py after an INTENDED estimator change
-and eyeball the docs/renders output before committing).
+and eyeball the docs/renders output before committing). chip_smoke.py renders
+the same anchors on the GPU and holds them to the same tolerances.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def golden_configs():
     from raysnail_tpu.config import RenderConfig
     from raysnail_tpu.scene import SceneBuilder
     from raysnail_tpu.scenes import book1, book2, cornell
-    from raysnail_tpu.scenes.meshes import torus_knot
+    from raysnail_tpu.scenes.meshes import knot_camera, knot_scene
     from raysnail_tpu.sdl import build_scene
 
     def sdl(name, cfg):
@@ -71,21 +72,10 @@ def golden_configs():
 
     out["book2"] = book2_entry
 
-    def mesh_entry():
-        cfg = RenderConfig(width=96, height=64, samples=4, max_depth=4)
-        v, f, n = torus_knot(n_seg=60, n_ring=12)
-        b = SceneBuilder()
-        b.add(ir.Mesh(vertices=v, indices=f, normals=n,
-                      material=ir.DiffuseMetal(400.0, ir.Constant((0.8, 0.6, 0.3)))))
-        b.add(ir.Sphere((0, -1001.3, 0), 1000.0,
-                        ir.Lambertian(ir.Constant((0.4, 0.4, 0.45)))))
-        b.add(ir.Sphere((4, 6, 3), 1.5,
-                        ir.DiffuseLight(ir.Constant((1.0, 0.95, 0.9)), 8.0)),
-              light=True)
-        b.set_background((0.05, 0.05, 0.08), (0.1, 0.12, 0.2))
-        cam = build_camera(look_from=(0, 1.5, 4), look_at=(0, 0, 0), fov=45,
-                           width=cfg.width, height=cfg.height)
-        return b.compile(), cam, cfg, 7
+    def mesh_entry(**kw):
+        cfg = RenderConfig(width=96, height=64, samples=4, max_depth=4, **kw)
+        return (knot_scene(60, 12).compile(),
+                knot_camera(cfg.width, cfg.height), cfg, 7)
 
     out["mesh"] = mesh_entry
 
@@ -104,26 +94,11 @@ def golden_configs():
 
     out["mandelbulb"] = bulb_entry
 
-    def book1_spherebvh_entry():
-        # the SAME scene as "book1" but forced through the pallas sphere-BVH
-        # traversal kernel (interpret mode on CPU), so the kernel path has a
-        # radiance-level anchor too — a Mosaic/logic regression that changes
-        # its output shows up here, not just in a driver bench
-        cfg = RenderConfig(width=64, height=36, samples=4, max_depth=4,
-                           sphere_bvh="force")
-        return (book1.balls_scene(7).compile(),
-                book1.balls_camera(cfg.width, cfg.height), cfg, 7)
-
-    out["book1-spherebvh"] = book1_spherebvh_entry
-
     def boxfield_entry():
-        # a 144-box field (>= BOX_BVH_MIN_BUILD) forced through the packed
-        # traversal kernel's "box" leaf kind (interpret on CPU): the box
-        # sweep's slab intervals, tie-break, face-uv reconstruction and
-        # entry/exit normals get a radiance-level anchor (VERDICT r4 item 8
-        # — the box kind leaned on kernel smokes only)
-        cfg = RenderConfig(width=64, height=40, samples=4, max_depth=4,
-                           box_bvh="force")
+        # a 144-box field on the dense slab sweep (boxes.intersect): slab
+        # intervals, the argmin tie-break over shared faces, face uv and
+        # entry/exit normals get a radiance-level anchor
+        cfg = RenderConfig(width=64, height=40, samples=4, max_depth=4)
         b = SceneBuilder()
         gm = ir.Lambertian(ir.Constant((0.48, 0.83, 0.53)))
         rng = np.random.default_rng(5)
@@ -139,30 +114,12 @@ def golden_configs():
                            width=cfg.width, height=cfg.height)
         return b.compile(), cam, cfg, 7
 
-    out["boxfield-kernel"] = boxfield_entry
+    out["boxfield"] = boxfield_entry
 
-    def mesh_binned_entry():
-        # the mesh scene again, forced through the kernel WITH entry-octant
-        # supertile binning (ops/binning.py's one-hot MXU permutations) —
-        # on accelerators this is the default route, so the bin/unbin
-        # round-trip needs a radiance anchor, not just unit tests
-        cfg = RenderConfig(width=96, height=64, samples=4, max_depth=4,
-                           mesh_pallas="force", mesh_bin="entry")
-        v, f, n = torus_knot(n_seg=60, n_ring=12)
-        b = SceneBuilder()
-        b.add(ir.Mesh(vertices=v, indices=f, normals=n,
-                      material=ir.DiffuseMetal(400.0, ir.Constant((0.8, 0.6, 0.3)))))
-        b.add(ir.Sphere((0, -1001.3, 0), 1000.0,
-                        ir.Lambertian(ir.Constant((0.4, 0.4, 0.45)))))
-        b.add(ir.Sphere((4, 6, 3), 1.5,
-                        ir.DiffuseLight(ir.Constant((1.0, 0.95, 0.9)), 8.0)),
-              light=True)
-        b.set_background((0.05, 0.05, 0.08), (0.1, 0.12, 0.2))
-        cam = build_camera(look_from=(0, 1.5, 4), look_at=(0, 0, 0), fov=45,
-                           width=cfg.width, height=cfg.height)
-        return b.compile(), cam, cfg, 7
-
-    out["mesh-binned"] = mesh_binned_entry
+    # the mesh scene again, forced through the Pallas mesh kernel
+    # (ops/mesh_kernel.py; interpret mode on a CPU), so the GPU route and its
+    # tile-mode regen shuffle have a radiance anchor of their own
+    out["mesh-kernel"] = lambda: mesh_entry(mesh_pallas="force")
     return out
 
 

@@ -1,10 +1,10 @@
 """Stage ablation on example.sdl: time the full step vs variants with parts
 neutralized, to locate the hot stages. Run AFTER bench --all (device free)."""
-import sys, time
-sys.path.insert(0, "/root/repo")
+import os, sys, time
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from raysnail_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 import jax.numpy as jnp
 from raysnail_tpu.config import RenderConfig
 from raysnail_tpu.prelude import rng as prng
@@ -34,7 +34,7 @@ def time_cfg(name, cfg, scene, camera, reps=3):
     return mr
 
 base = RenderConfig(width=800, height=500, samples=65, max_depth=8)
-scene, camera = build_scene("/root/repo/sdl/example.sdl", base)
+scene, camera = build_scene(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "sdl", "example.sdl"), base)
 time_cfg("full depth8", base, scene, camera)
 time_cfg("depth4", base.replace(max_depth=4), scene, camera)
 time_cfg("depth2", base.replace(max_depth=2), scene, camera)

@@ -9,9 +9,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from raysnail_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,10 +1,11 @@
 """Per-bounce live-lane occupancy of a scene (CPU, small frame): the fraction
 of bounce-loop work that is masked dead lanes. Alive fractions are scene
 statistics, independent of resolution/backend, so a small CPU run answers the
-question for the canonical TPU frame."""
+question for the canonical GPU frame."""
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 import jax
 
 jax.config.update("jax_platforms", "cpu")
@@ -43,7 +44,7 @@ def stats(name, scene, camera, cfg, seed=7):
 
 if __name__ == "__main__":
     cfg = RenderConfig(width=200, height=125, samples=4, max_depth=8)
-    scene, cam = build_scene("/root/repo/sdl/example.sdl", cfg)
+    scene, cam = build_scene(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "sdl", "example.sdl"), cfg)
     stats("example.sdl", scene, cam, cfg)
 
     cfg1 = RenderConfig(width=200, height=112, samples=4, max_depth=8)

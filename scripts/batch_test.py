@@ -1,8 +1,8 @@
-import sys, time
-sys.path.insert(0, "/root/repo")
+import os, sys, time
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from raysnail_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 import jax.numpy as jnp
 from raysnail_tpu.config import RenderConfig
 from raysnail_tpu.prelude import rng as prng

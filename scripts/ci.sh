@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # CI-style gate: full test suite on the 8-device virtual CPU mesh, a small
 # CPU bench sanity run (one JSON line), a CLI render smoke, and the driver
-# entry points. No TPU required.
+# entry points. No GPU required.
 set -euo pipefail
 cd "$(dirname "$0")/.."
 

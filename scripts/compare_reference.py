@@ -13,7 +13,7 @@ Method: compare at the reference's native 800x500 (box-downsample only if
 `ours` is smaller), reporting PSNR, mean |diff|, percentiles, pixel
 correlation, and the in-tolerance fraction. Recorded round-4: PSNR
 38.6 dB / corr 0.9992 at 121 spp (the round-3 400x250@36spp comparison
-read 28.4 dB — noise-dominated, as VERDICT r3 suspected); see
+read 28.4 dB — noise-dominated); see
 docs/REFERENCE_PARITY.md.
 
 Usage: python scripts/compare_reference.py

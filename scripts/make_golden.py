@@ -1,8 +1,14 @@
 #!/usr/bin/env python
-"""Regenerate the golden regression anchors (tests/golden/golden.npz).
+"""Regenerate golden regression anchors (tests/golden/golden.npz).
 
-Run this ONLY after an intended estimator change, on the CPU backend, and
-eyeball the PNGs it drops in docs/renders/golden/ before committing."""
+    python scripts/make_golden.py            # anchors missing from the archive
+    python scripts/make_golden.py NAME ...   # re-render these anchors
+    python scripts/make_golden.py --all      # re-render every anchor
+
+Anchors not re-rendered keep their committed arrays unchanged; anchors no
+longer in utils/golden.golden_configs() are dropped. Run this ONLY after an
+intended estimator or route change, on the CPU backend, and eyeball the PNGs
+it drops in docs/renders/golden/ before committing."""
 
 from __future__ import annotations
 
@@ -26,8 +32,21 @@ def main():
     png_dir = os.path.join(golden.REPO, "docs", "renders", "golden")
     os.makedirs(png_dir, exist_ok=True)
 
-    arrays = {}
-    for name in golden.golden_configs():
+    configs = golden.golden_configs()
+    old = dict(np.load(golden.GOLDEN_PATH)) if os.path.exists(
+        golden.GOLDEN_PATH) else {}
+    have = {k.split("/")[0] for k in old}
+    if "--all" in sys.argv[1:]:
+        names = list(configs)
+    else:
+        names = [a for a in sys.argv[1:] if not a.startswith("-")] or [
+            n for n in configs if n not in have]
+    unknown = sorted(set(names) - set(configs))
+    if unknown:
+        sys.exit(f"unknown anchors: {unknown}")
+    arrays = {k: v for k, v in old.items()
+              if k.split("/")[0] in configs and k.split("/")[0] not in names}
+    for name in names:
         t0 = time.time()
         img = golden.render_anchor(name)
         stats = golden.anchor_stats(img)

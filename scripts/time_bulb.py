@@ -1,8 +1,8 @@
 import os, sys, time
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from raysnail_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 import jax.numpy as jnp
 from raysnail_tpu import ir
 from raysnail_tpu.camera import build_camera

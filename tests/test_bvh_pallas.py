@@ -1,14 +1,19 @@
-"""Packet BVH traversal kernel vs the XLA traversal (interpret mode)."""
+"""The Pallas mesh kernel (ops/mesh_kernel.py, Triton route, interpret mode
+on the CPU) against the plain XLA walk (geometry/triangles.intersect)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from raysnail_tpu import ir
 from raysnail_tpu.camera import Ray
 from raysnail_tpu.geometry import triangles
+from raysnail_tpu.geometry.hit import BIG
+from raysnail_tpu.ops import mesh_kernel
 from raysnail_tpu.prelude.vec import Vec3
 from raysnail_tpu.scene import _build_triangles
-from raysnail_tpu.scenes.meshes import uv_sphere
+from raysnail_tpu.scenes.meshes import torus_knot, uv_sphere
 
 TMIN, TMAX = jnp.float32(1e-3), jnp.float32(1e30)
 
@@ -18,39 +23,38 @@ def _group(v, f, n):
     return _build_triangles([(spec, 0)], lambda a: jnp.asarray(np.asarray(a), jnp.float32))
 
 
-def test_packet_traversal_matches_reference(rng_np):
-    v, f, n = uv_sphere(10, 14, center=(0.0, 0.0, -3.0))
-    group = _group(v, f, n)
-    n_rays = 300  # not a multiple of TILE_R -> exercises padding
-    o = rng_np.uniform(-1, 1, (n_rays, 3)).astype(np.float32)
-    d = rng_np.standard_normal((n_rays, 3)).astype(np.float32)
-    d[:, 2] -= 2.0  # aim forward-ish
+def _rays(rng, n_rays, origin_lo=-1.0, origin_hi=1.0, z_bias=-2.0):
+    o = rng.uniform(origin_lo, origin_hi, (n_rays, 3)).astype(np.float32)
+    d = rng.standard_normal((n_rays, 3)).astype(np.float32)
+    d[:, 2] += z_bias  # aim forward-ish
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    ray = Ray(
+    return Ray(
         origin=Vec3.from_array(jnp.asarray(o)),
         direction=Vec3.from_array(jnp.asarray(d)),
         time=jnp.zeros(n_rays, jnp.float32),
     )
-    h_ref = triangles.intersect(group, ray, TMIN, TMAX)
-    h_pk = triangles.intersect_pallas(group, ray, TMIN, TMAX, interpret=True)
-    np.testing.assert_array_equal(np.asarray(h_ref.valid), np.asarray(h_pk.valid))
+
+
+def _assert_hits_match(h_ref, h_k, rtol=1e-5):
+    np.testing.assert_array_equal(np.asarray(h_ref.valid), np.asarray(h_k.valid))
     both = np.asarray(h_ref.valid)
     np.testing.assert_allclose(
-        np.asarray(h_ref.t)[both], np.asarray(h_pk.t)[both], rtol=5e-4
-    )
+        np.asarray(h_ref.t)[both], np.asarray(h_k.t)[both], rtol=rtol)
     np.testing.assert_allclose(
         np.asarray(h_ref.normal.to_array())[both],
-        np.asarray(h_pk.normal.to_array())[both], atol=1e-3
-    )
+        np.asarray(h_k.normal.to_array())[both], atol=1e-5)
     np.testing.assert_array_equal(
-        np.asarray(h_ref.mat_id)[both], np.asarray(h_pk.mat_id)[both])
-    # octant-sorted path: permutation must round-trip exactly
-    h_srt = triangles.intersect_pallas(group, ray, TMIN, TMAX,
-                                       interpret=True, sort_rays=True)
-    np.testing.assert_array_equal(np.asarray(h_pk.valid), np.asarray(h_srt.valid))
-    np.testing.assert_array_equal(np.asarray(h_pk.t), np.asarray(h_srt.t))
-    np.testing.assert_array_equal(
-        np.asarray(h_pk.mat_id), np.asarray(h_srt.mat_id))
+        np.asarray(h_ref.mat_id)[both], np.asarray(h_k.mat_id)[both])
+
+
+def test_packet_traversal_matches_reference(rng_np):
+    v, f, n = uv_sphere(10, 14, center=(0.0, 0.0, -3.0))
+    group = _group(v, f, n)
+    ray = _rays(rng_np, 300)  # not a multiple of BLOCK -> exercises padding
+    h_ref = triangles.intersect(group, ray, TMIN, TMAX)
+    h_k = triangles.intersect_kernel(group, ray, TMIN, TMAX, interpret=True)
+    assert np.asarray(h_ref.valid).any()
+    _assert_hits_match(h_ref, h_k)
 
 
 def test_active_mask_suppresses_dead_lanes(rng_np):
@@ -58,18 +62,10 @@ def test_active_mask_suppresses_dead_lanes(rng_np):
     v, f, n = uv_sphere(8, 12, center=(0.0, 0.0, -3.0))
     group = _group(v, f, n)
     n_rays = 256
-    o = rng_np.uniform(-1, 1, (n_rays, 3)).astype(np.float32)
-    d = rng_np.standard_normal((n_rays, 3)).astype(np.float32)
-    d[:, 2] -= 2.0
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    ray = Ray(
-        origin=Vec3.from_array(jnp.asarray(o)),
-        direction=Vec3.from_array(jnp.asarray(d)),
-        time=jnp.zeros(n_rays, jnp.float32),
-    )
+    ray = _rays(rng_np, n_rays)
     alive = rng_np.random(n_rays) < 0.5
-    h_all = triangles.intersect_pallas(group, ray, TMIN, TMAX, interpret=True)
-    h_msk = triangles.intersect_pallas(group, ray, TMIN, TMAX,
+    h_all = triangles.intersect_kernel(group, ray, TMIN, TMAX, interpret=True)
+    h_msk = triangles.intersect_kernel(group, ray, TMIN, TMAX,
                                        active=jnp.asarray(alive),
                                        interpret=True)
     np.testing.assert_array_equal(
@@ -79,153 +75,89 @@ def test_active_mask_suppresses_dead_lanes(rng_np):
         np.asarray(h_msk.t)[live_hit], np.asarray(h_all.t)[live_hit])
 
 
-def test_sphere_bvh_kernel_matches_dense(rng_np):
-    """kind="sphere" traversal vs the dense XLA sweep on a big sphere set."""
-    from raysnail_tpu import ir
-    from raysnail_tpu.geometry import spheres
-    from raysnail_tpu.scene import SceneBuilder
-
-    b = SceneBuilder()
-    centers = rng_np.uniform(-4, 4, (96, 3))
-    for i, c in enumerate(centers):
-        b.add(ir.Sphere(tuple(c), 0.25 + 0.05 * (i % 4),
-                        ir.Lambertian(ir.Constant((0.5, 0.5, 0.5)))))
-    scene = b.compile()
-    group = scene.arrays.spheres
-    assert group.pk_bb is not None  # >= 64 static spheres -> packed
-
-    n_rays = 300
-    o = rng_np.uniform(-6, 6, (n_rays, 3)).astype(np.float32)
-    d = rng_np.standard_normal((n_rays, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    ray = Ray(
-        origin=Vec3.from_array(jnp.asarray(o)),
-        direction=Vec3.from_array(jnp.asarray(d)),
-        time=jnp.zeros(n_rays, jnp.float32),
-    )
-    h_ref = spheres.intersect(group, ray, TMIN, TMAX)
-    h_pk = spheres.intersect(group, ray, TMIN, TMAX,
-                             use_bvh=True, bvh_interpret=True)
-    np.testing.assert_array_equal(np.asarray(h_ref.valid), np.asarray(h_pk.valid))
-    both = np.asarray(h_ref.valid)
-    np.testing.assert_allclose(
-        np.asarray(h_ref.t)[both], np.asarray(h_pk.t)[both], rtol=5e-4)
-    np.testing.assert_array_equal(
-        np.asarray(h_ref.mat_id)[both], np.asarray(h_pk.mat_id)[both])
-    np.testing.assert_allclose(
-        np.asarray(h_ref.normal.to_array())[both],
-        np.asarray(h_pk.normal.to_array())[both], atol=2e-3)
-
-
-def test_hbm_leaf_streaming_matches_resident(rng_np):
-    """stream=True (HBM leaf blocks + DMA ring) must be bit-identical to the
-    VMEM-resident path."""
-    from raysnail_tpu.ops import bvh_pallas
-
-    v, f, n = uv_sphere(12, 16, center=(0.0, 0.0, -3.0))
+def _case(name, rng):
+    """-> (group, ray, t_cap or None, active or None) for one agreement case."""
+    if name == "torus_knot":
+        v, f, n = torus_knot(n_seg=60, n_ring=12)
+        group = _group(v, f, n)
+        o = np.tile(np.array([[0.0, 1.5, 4.0]], np.float32), (200, 1))
+        tgt = rng.uniform(-1.5, 1.5, (200, 3)).astype(np.float32)
+        d = tgt - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        ray = Ray(origin=Vec3.from_array(jnp.asarray(o)),
+                  direction=Vec3.from_array(jnp.asarray(d)),
+                  time=jnp.zeros(200, jnp.float32))
+        return group, ray, None, None
+    v, f, n = uv_sphere(10, 14, center=(0.0, 0.0, -3.0))
     group = _group(v, f, n)
-    n_rays = bvh_pallas.TILE_R
-    o = rng_np.uniform(-1, 1, (n_rays, 3)).astype(np.float32)
-    d = rng_np.standard_normal((n_rays, 3)).astype(np.float32)
-    d[:, 2] -= 2.0
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    args = (
-        (jnp.asarray(o[:, 0]), jnp.asarray(o[:, 1]), jnp.asarray(o[:, 2])),
-        (jnp.asarray(d[:, 0]), jnp.asarray(d[:, 1]), jnp.asarray(d[:, 2])),
-        jnp.full(n_rays, 1e30, jnp.float32),
-        group.pk_bb, group.pk_links, group.pk_tri,
-        TMIN, TMAX,
-    )
-    kind = ("tri_mxu" if group.pk_tri.shape[2] == bvh_pallas.MXU_LANES
-            else "tri")
-    res = bvh_pallas.bvh_traverse(*args, kind=kind, interpret=True,
-                                  stream=False)
-    strm = bvh_pallas.bvh_traverse(*args, kind=kind, interpret=True,
-                                   stream=True)
-    for a, b in zip(res, strm):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    if name == "uv_sphere":
+        return group, _rays(rng, 200), None, None
+    if name == "all_miss":
+        # every ray points away from the mesh
+        return group, _rays(rng, 200, z_bias=+4.0), None, None
+    if name == "dead_lanes":
+        return group, _rays(rng, 200), None, jnp.asarray(rng.random(200) < 0.6)
+    if name == "t_cap":
+        ray = _rays(rng, 200)
+        cap = jnp.asarray(rng.uniform(0.5, 4.0, 200).astype(np.float32))
+        return group, ray, cap, None
+    raise ValueError(name)
 
 
-def test_box_bvh_kernel_matches_dense(rng_np):
-    """kind="box" traversal vs the dense XLA slab sweep on a book2-style
-    random-height box grid (scene.rs:341-358)."""
-    from raysnail_tpu import ir
-    from raysnail_tpu.geometry import boxes
-    from raysnail_tpu.scene import SceneBuilder
-
-    b = SceneBuilder()
-    mat = ir.Lambertian(ir.Constant((0.48, 0.83, 0.53)))
-    w = 1.0
-    for i in range(12):
-        for j in range(12):
-            x0, z0 = -6.0 + i * w, -6.0 + j * w
-            y1 = 0.1 + rng_np.random() * 2.0
-            b.add(ir.Box((x0, 0.0, z0), (x0 + w, y1, z0 + w), mat))
-    scene = b.compile()
-    group = scene.arrays.boxes
-    assert group.pk_bb is not None  # 144 boxes >= BOX_BVH_MIN_BUILD
-
-    n_rays = 300
-    o = rng_np.uniform(-8, 8, (n_rays, 3)).astype(np.float32)
-    o[:, 1] = rng_np.uniform(0.5, 6.0, n_rays)
-    d = rng_np.standard_normal((n_rays, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    ray = Ray(
-        origin=Vec3.from_array(jnp.asarray(o)),
-        direction=Vec3.from_array(jnp.asarray(d)),
-        time=jnp.zeros(n_rays, jnp.float32),
-    )
-    h_ref = boxes.intersect(group, ray, TMIN, TMAX)
-    h_pk = boxes.intersect_pallas(group, ray, TMIN, TMAX, interpret=True)
-    np.testing.assert_array_equal(np.asarray(h_ref.valid), np.asarray(h_pk.valid))
-    both = np.asarray(h_ref.valid)
-    np.testing.assert_allclose(
-        np.asarray(h_ref.t)[both], np.asarray(h_pk.t)[both], rtol=5e-4)
-    np.testing.assert_allclose(
-        np.asarray(h_ref.normal.to_array())[both],
-        np.asarray(h_pk.normal.to_array())[both], atol=1e-3)
-    np.testing.assert_allclose(
-        np.asarray(h_ref.u)[both], np.asarray(h_pk.u)[both], atol=2e-3)
-    np.testing.assert_allclose(
-        np.asarray(h_ref.v)[both], np.asarray(h_pk.v)[both], atol=2e-3)
-    np.testing.assert_array_equal(
-        np.asarray(h_ref.mat_id)[both], np.asarray(h_pk.mat_id)[both])
-    np.testing.assert_array_equal(
-        np.asarray(h_ref.outside)[both], np.asarray(h_pk.outside)[both])
+@pytest.mark.parametrize(
+    "case", ["uv_sphere", "torus_knot", "all_miss", "dead_lanes", "t_cap"])
+def test_kernel_matches_xla_walk(case):
+    """Kernel hits agree with the XLA walk's, with the cap/mask semantics
+    applied to the walk's result: dead lanes miss; a hit at or beyond t_cap
+    may be pruned (the cheaper group's hit wins there anyway)."""
+    rng = np.random.default_rng(11)
+    group, ray, cap, active = _case(case, rng)
+    h_ref = triangles.intersect(group, ray, TMIN, TMAX)
+    h_k = triangles.intersect_kernel(group, ray, TMIN, TMAX, active=active,
+                                     t_cap=cap, interpret=True)
+    valid_ref = np.asarray(h_ref.valid)
+    if case == "all_miss":
+        assert not valid_ref.any()
+    if active is not None:
+        valid_ref = valid_ref & np.asarray(active)
+    k_valid = np.asarray(h_k.valid)
+    if cap is not None:
+        capn = np.asarray(cap)
+        t_ref = np.asarray(h_ref.t)
+        below = valid_ref & (t_ref < capn * (1.0 - 1e-5))
+        # every walk hit clearly below the cap is found; nothing the
+        # kernel reports lies beyond the walk's hit
+        assert below.any() and (~valid_ref).any()
+        np.testing.assert_array_equal(k_valid[below], True)
+        np.testing.assert_array_equal(k_valid[~valid_ref], False)
+        np.testing.assert_allclose(np.asarray(h_k.t)[below], t_ref[below],
+                                   rtol=1e-5)
+        return
+    np.testing.assert_array_equal(k_valid, valid_ref)
+    both = valid_ref
+    np.testing.assert_allclose(np.asarray(h_ref.t)[both],
+                               np.asarray(h_k.t)[both], rtol=1e-5)
+    np.testing.assert_array_equal(np.asarray(h_ref.mat_id)[both],
+                                  np.asarray(h_k.mat_id)[both])
 
 
-def test_box_kernel_inside_start(rng_np):
-    """Rays starting INSIDE a box must report the exit face (box.rs:131-134)
-    through the kernel too."""
-    from raysnail_tpu import ir
-    from raysnail_tpu.geometry import boxes
-    from raysnail_tpu.scene import SceneBuilder
-
-    b = SceneBuilder()
-    mat = ir.Lambertian(ir.Constant((0.5, 0.5, 0.5)))
-    for i in range(12):
-        for j in range(12):
-            b.add(ir.Box((i * 2.0, 0.0, j * 2.0),
-                         (i * 2.0 + 1.5, 3.0, j * 2.0 + 1.5), mat))
-    scene = b.compile()
-    group = scene.arrays.boxes
-    n_rays = 128
-    # all rays start inside box (0, 0): origin in its interior
-    o = rng_np.uniform(0.2, 1.3, (n_rays, 3)).astype(np.float32)
-    o[:, 1] = rng_np.uniform(0.5, 2.5, n_rays)
-    d = rng_np.standard_normal((n_rays, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    ray = Ray(
-        origin=Vec3.from_array(jnp.asarray(o)),
-        direction=Vec3.from_array(jnp.asarray(d)),
-        time=jnp.zeros(n_rays, jnp.float32),
-    )
-    h_ref = boxes.intersect(group, ray, TMIN, TMAX)
-    h_pk = boxes.intersect_pallas(group, ray, TMIN, TMAX, interpret=True)
-    np.testing.assert_array_equal(np.asarray(h_ref.valid), np.asarray(h_pk.valid))
-    both = np.asarray(h_ref.valid)
-    np.testing.assert_allclose(
-        np.asarray(h_ref.t)[both], np.asarray(h_pk.t)[both], rtol=5e-4)
-    np.testing.assert_allclose(
-        np.asarray(h_ref.normal.to_array())[both],
-        np.asarray(h_pk.normal.to_array())[both], atol=1e-3)
+@pytest.mark.parametrize("n_rays", [1, 127, 129, 384])
+def test_kernel_pads_ray_counts(n_rays):
+    """Ray counts that are not a multiple of BLOCK pad with dead lanes and
+    slice back: shapes are (N,), and lane i's answer does not depend on N."""
+    rng = np.random.default_rng(3)
+    v, f, n = uv_sphere(8, 12, center=(0.0, 0.0, -3.0))
+    group = _group(v, f, n)
+    ray = _rays(rng, 384)
+    full = mesh_kernel.traverse(group, ray.origin, ray.direction,
+                                jnp.full(384, BIG, jnp.float32),
+                                t_min=1e-3, t_max=1e30, interpret=True)
+    part = jax.tree_util.tree_map(lambda a: a[:n_rays], ray)
+    out = mesh_kernel.traverse(group, part.origin, part.direction,
+                               jnp.full(n_rays, BIG, jnp.float32),
+                               t_min=1e-3, t_max=1e30, interpret=True)
+    assert [a.shape for a in out] == [(n_rays,)] * 4
+    assert [a.dtype for a in out] == [jnp.float32, jnp.int32, jnp.float32,
+                                      jnp.float32]
+    for a, b in zip(out, full):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b)[:n_rays])

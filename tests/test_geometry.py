@@ -77,26 +77,27 @@ class TestSpheres:
         np.testing.assert_array_equal(np.asarray(h_direct.mat_id), np.asarray(h_chunked.mat_id))
 
     def test_chunked_ignores_packed_bvh_tables(self):
-        # regression: groups >512 spheres carry pk_* side tables (built by
-        # scene compile for the traversal kernel); the chunked dense sweep
-        # must not try to reshape them per-sphere
+        # groups carry per-sphere rows only (no packed BVH side tables), so
+        # the chunked sweep reshapes every field; inactive padding rows (as
+        # scene compile adds above 512 spheres) never win
         rng = np.random.default_rng(1)
         centers = rng.uniform(-10, 10, (64, 3))
         radii = rng.uniform(0.5, 2.0, 64)
         g = sphere_group(centers, radii)
-        g = g._replace(
-            pk_bb=jnp.zeros((7, 8), jnp.float32),
-            pk_links=jnp.zeros((7, 4), jnp.int32),
-            pk_sph=jnp.zeros((3, 8, 8), jnp.float32),
-        )
+        assert set(g._fields) == {"center", "radius", "speed", "mat_id",
+                                  "active"}
+        pad = lambda a, v: jnp.concatenate([a, jnp.full((16,) + a.shape[1:], v, a.dtype)])
+        g_pad = g._replace(
+            center=g.center.map(lambda a: pad(a, 0.0)),
+            radius=pad(g.radius, 1.0), speed=g.speed.map(lambda a: pad(a, 0.0)),
+            mat_id=pad(g.mat_id, -1), active=pad(g.active, False))
         o = rng.uniform(-20, 20, (9, 3))
         d = rng.standard_normal((9, 3))
         ray = make_ray(o, d)
-        h_plain = spheres.intersect(
-            g._replace(pk_bb=None, pk_links=None, pk_sph=None),
-            ray, TMIN, TMAX, chunk=16)
-        h = spheres.intersect(g, ray, TMIN, TMAX, chunk=16)
+        h_plain = spheres.intersect(g, ray, TMIN, TMAX, chunk=16)
+        h = spheres.intersect(g_pad, ray, TMIN, TMAX, chunk=16)
         np.testing.assert_allclose(np.asarray(h.t), np.asarray(h_plain.t), rtol=1e-5)
+        np.testing.assert_array_equal(np.asarray(h.mat_id), np.asarray(h_plain.mat_id))
 
     def test_uv_poles_and_equator(self):
         g = sphere_group([[0, 0, 0]], [1.0])

@@ -1,6 +1,6 @@
 """Golden regression gate: fixed-seed CPU renders must match the committed
-anchor statistics (utils/golden.py). Catches silent estimator drift — the gap
-VERDICT r1 flagged ("nothing stops a silent estimator regression")."""
+anchor statistics (utils/golden.py). Catches silent estimator drift ("nothing
+stops a silent estimator regression" was an early review's finding)."""
 
 import pytest
 

@@ -178,9 +178,9 @@ def test_regen_window_is_invariant():
 
 
 def test_regen_shuffle_tiled_packets_invariant():
-    """When a packet traversal kernel is active, the regen shuffle rotates
-    at PACKET granularity with tile-decoded lanes; the estimate must equal
-    the scan integrator's (same (pixel, sample) keys) exactly per pixel."""
+    """When the mesh kernel is active, the regen shuffle rotates at kernel
+    BLOCK granularity with tile-decoded lanes; the estimate must equal the
+    scan integrator's (same (pixel, sample) keys) exactly per pixel."""
     import numpy as np
 
     from raysnail_tpu import ir
@@ -199,7 +199,7 @@ def test_regen_shuffle_tiled_packets_invariant():
                     ir.DiffuseLight(ir.Constant((1.0, 1.0, 1.0)), 5.0)),
           light=True)
     scene = b.compile()
-    # 32x16 = 512 lanes = 4 packets; 16x8 tiles divide -> tile mode active
+    # 32x16 = 512 lanes = 4 blocks; 16x8 tiles divide -> tile mode active
     cfg = RenderConfig(width=32, height=16, samples=4, max_depth=3,
                        mesh_pallas="force")
     cam = build_camera((0, 0, 1), (0, 0, -3), fov=50,
@@ -207,3 +207,43 @@ def test_regen_shuffle_tiled_packets_invariant():
     img_regen = render(scene, cam, cfg, seed=4)           # frame step (tiled)
     img_scan = render(scene, cam, cfg.replace(path_regen="never"), seed=4)
     np.testing.assert_allclose(img_regen, img_scan, atol=2e-5)
+
+
+def test_scattered_rays_start_off_the_surface():
+    """A bounce leaves SURFACE_EPS * max(1, |p|) off the surface, on the side
+    it leaves by: from a wall at z=555 no bounce ray re-hits the wall just
+    past t_min (an f32 self-hit whose outcome turns on the last bits)."""
+    from raysnail_tpu import integrator
+    from raysnail_tpu import scene as scenelib
+    from raysnail_tpu.camera import Ray
+    from raysnail_tpu.prelude import rng as prng
+    from raysnail_tpu.prelude.vec import Vec3
+
+    b = SceneBuilder()
+    b.add(ir.Rect(2, 555.0, 0.0, 555.0, 0.0, 555.0,
+                  ir.Lambertian(ir.Constant((0.7, 0.7, 0.7)))))
+    scene = b.compile()
+    cfg = RenderConfig(max_depth=2)
+    n = 4096
+    rng = np.random.default_rng(2)
+    o = np.stack([rng.uniform(50, 500, n), rng.uniform(50, 500, n),
+                  np.zeros(n)], -1).astype(np.float32)
+    d = rng.normal(size=(n, 3)) * [0.2, 0.2, 0.0] + [0.0, 0.0, 1.0]
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    ray = Ray(origin=Vec3.from_array(jnp.asarray(o)),
+              direction=Vec3.from_array(jnp.asarray(d)),
+              time=jnp.zeros(n, jnp.float32))
+    keys = prng.fast_streams(prng.key(0), jnp.arange(n, dtype=jnp.int32))
+    shade = integrator._make_shade(scene, cfg, integrator._pallas_policy(cfg))
+    new_o, new_d, _, _, alive = shade(
+        scene.arrays, ray, Vec3.ones((n,)), Vec3.zeros((n,)),
+        jnp.ones(n, bool), keys)
+    alive = np.asarray(alive)
+    assert alive.mean() > 0.5                  # most rays hit the wall
+    gap = (555.0 - np.asarray(new_o.z))[alive]
+    assert (np.asarray(new_d.z)[alive] < 0).all()   # diffuse bounces go back
+    assert gap.min() >= 0.99 * integrator.SURFACE_EPS * 555.0, gap.min()
+    again = scenelib.intersect(scene, scene.arrays,
+                               Ray(new_o, new_d, ray.time), cfg.t_min,
+                               cfg.t_max, keys)
+    assert not np.asarray(again.valid)[alive].any()

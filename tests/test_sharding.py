@@ -161,3 +161,32 @@ def test_sharded_checkpoint_resume_exact():
     full = RenderSession(scene, cam, cfg, seed=3, step=step,
                          k_multiple=km).render()
     np.testing.assert_allclose(resumed, full, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2), (2, 2)])
+def test_sharded_grads_match_single_device(shape):
+    """One sharded SGD step recovers the same gradient as make_train_step on
+    one device (lr 1 -> the update is the gradient), for any mesh shape:
+    no collective may scale it by the device count."""
+    import optax
+
+    from raysnail_tpu.diff import make_train_step
+
+    scene, cam = scene_and_cam()
+    target = jnp.full((CFG.height, CFG.width, 3), 0.25, jnp.float32)
+    key = jax.random.PRNGKey(0)
+    mesh = make_mesh(*shape, devices=jax.devices()[:shape[0] * shape[1]])
+    sstep, sopt, p0 = make_sharded_train_step(scene, cam, CFG, target, mesh,
+                                              optimizer=optax.sgd(1.0))
+    p_s, _, loss_s = sstep(p0, sopt, key)
+    step, opt, q0 = make_train_step(scene, cam, CFG, target,
+                                    optimizer=optax.sgd(1.0))
+    p_1, _, loss_1 = step(q0, opt, key,
+                          jnp.arange(CFG.effective_samples, dtype=jnp.int32))
+    np.testing.assert_allclose(float(loss_s), float(loss_1), rtol=1e-5)
+    for a, b, c in zip(jax.tree_util.tree_leaves(p0),
+                       jax.tree_util.tree_leaves(p_s),
+                       jax.tree_util.tree_leaves(p_1)):
+        np.testing.assert_allclose(np.asarray(a) - np.asarray(b),
+                                   np.asarray(a) - np.asarray(c),
+                                   rtol=1e-4, atol=1e-7)

@@ -1,4 +1,4 @@
-"""Transformed rects (VERDICT r1 gap: the reference's TfFacade wraps any
+"""Transformed rects (an early review's gap: the reference's TfFacade wraps any
 hittable incl. AARect, tf_facade.rs:41-54; round 1 raised NotImplementedError
 for them)."""
 
